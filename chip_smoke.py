@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Smoke run of goblin_tpu_torch's main path on one NVIDIA GPU.
+"""Smoke run of goblin_tpu_torch's paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each printed on its own lines, and any failure exits non-zero:
   1. card: nvidia-smi's name and power limit, torch's device name;
-  2. build: csrc/trace_bvh8.cu with nvcc (seconds, ptxas report);
+  2. build: csrc/trace_bvh8.cu and csrc/trace_bvh2.cu, one nvcc each,
+     started together (seconds, ptxas report);
   3. kernel vs plain: the BVH8 kernel against its plain PyTorch version on
      the full-frame bunny primary, bounce-1 continuation and bounce-1
      shadow wavefronts, traced in the main path's 65,536-ray chunks, in
@@ -15,7 +16,21 @@ Phases, each printed on its own lines, and any failure exits non-zero:
      chunk 65,536, through load_scene -> make_li -> render -> EXR; the
      image must be finite and non-black and the kernel must have launched
      8 times per chunk (1 primary, 4 shadow, 3 continuation) x 3 chunks
-     x 4 passes = 96.
+     x 4 passes = 96;
+  6. the binary-BVH kernel (trace width 1) against its plain version and
+     against the BVH8 kernel, on phase 3's wavefronts plus the first bounce
+     of one 32,768-photon chunk, both hit modes, in 65,536-ray chunks and
+     in one full-frame launch, with times;
+  7. the BVH8 kernel's stats instance: a visit census of the primary and
+     continuation wavefronts (2 launches), whose per-ray inner / leaf /
+     iteration counts equal the plain version's;
+  8. bunny.json as shipped (SPPM, 512 x 384, depth 20, initial radius
+     0.01) with sample_per_pixel cut from 100 to 4 iterations, through
+     render_context at trace width 1 and at 8: finite non-black images
+     that agree, and exactly 1 + 2 x 20 + 6 x 20 = 161 launches per
+     iteration of the width's kernel and none of the other;
+  9. a 48 x 36, 2-iteration, depth-5 SPPM render at width 1 on the card
+     against the CPU's.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 """
 
@@ -34,6 +49,8 @@ SETTINGS = {"render_method": "path_tracing", "max_ray_depth": 5,
 CHUNK = 1 << 16
 EXPECTED_LAUNCHES = 8 * 3 * 4
 KERNEL_REPS = 20
+# phase 8: bunny.json's own settings but 4 of its 100 iterations
+SPPM_ITERATIONS = 4
 
 
 class SmokeFailure(Exception):
@@ -220,7 +237,7 @@ def main_path():
     img, meta = render_context(BUNNY, SETTINGS, device="cuda",
                                chunk_size=CHUNK, report=report)
     torch.cuda.synchronize()
-    launches = tt.launches
+    launches = dict(tt.launches)
     img = img.cpu().numpy()
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "bunny.exr")
@@ -233,8 +250,10 @@ def main_path():
     check(img.shape == (384, 512, 3), f"image shape {img.shape}")
     check(np.isfinite(img).all(), "image has non-finite pixels")
     check(img.mean() > 0, "image is black")
-    check(launches == EXPECTED_LAUNCHES,
-          f"kernel launches {launches}, expected {EXPECTED_LAUNCHES}")
+    check(launches == {"trace_bvh8": EXPECTED_LAUNCHES, "trace_bvh8_stats": 0,
+                       "trace_bvh2": 0},
+          f"kernel launches {launches}, expected {EXPECTED_LAUNCHES} of "
+          "trace_bvh8 and no other")
     # bench.py's accounting: 1 + 2 (depth - 1) = 9 lane-rays per
     # lane-sample, 8 dispatched with the all-delta last-bounce peel. The
     # first pass also holds the scene load.
@@ -246,7 +265,296 @@ def main_path():
           f"{n_pix * 8 / steady / 1e6:.3f} dispatched Mrays/s", flush=True)
     print(f"  image mean {img.mean():.6f} max {img.max():.4f}; EXR "
           f"{exr_bytes} bytes; kernel launches {launches}", flush=True)
-    return launches
+    return launches["trace_bvh8"]
+
+
+def photon_wavefront(scene, seed):
+    """First bounce of photon chunk 0 of iteration 0, as SPPM's light walk
+    casts it (seed + 77, 32,768 photons)."""
+    import torch
+
+    from goblin_tpu_torch import splatting as sp
+    from goblin_tpu_torch.core.rng import hash_uniform
+    from goblin_tpu_torch.integrators import sppm
+    from goblin_tpu_torch.integrators.path import _em_tri_data
+    from goblin_tpu_torch.lights import lights as lt
+
+    dev = scene["tri_rows"].device
+    ids = torch.arange(sppm.PHOTON_CHUNK, dtype=torch.int32, device=dev)
+
+    def u(dim):
+        return hash_uniform(seed + 77, ids, 0, 0, dim)
+
+    lid, _ = lt.pick_light(scene["lights"], u(sp.DIM_PICK))
+    em = lt.sample_emission(scene["lights"], _em_tri_data(scene), lid,
+                            u(sp.DIM_POS1), u(sp.DIM_POS2), u(sp.DIM_DIR1),
+                            u(sp.DIM_DIR2))
+    return [em["p"], em["dir"],
+            torch.full((sppm.PHOTON_CHUNK,), 1e-3, device=dev),
+            torch.full((sppm.PHOTON_CHUNK,), 3e37, device=dev)]
+
+
+def compare_traces(name, mode, got, ref, what):
+    """The kernel bar: hit masks differ on <= 1e-4 of lanes; on common
+    closest hits t within 1e-4 rel and tri equal on >= 99%. Returns (line,
+    t max abs error)."""
+    hit_diff = (got[0] != ref[0]).float().mean().item()
+    line = f"{what}: hit-mask diff {hit_diff:.2e}"
+    check(hit_diff <= 1e-4, f"{name} {mode} {what}: hit masks differ on "
+                            f"{hit_diff:.2e} of lanes")
+    both = got[0] & ref[0]
+    err = 0.0
+    if mode == "closest" and int(both.sum()):
+        dt = (got[1][both] - ref[1][both]).abs()
+        rel = (dt / ref[1][both].abs().clamp(min=1e-30)).max().item()
+        tri_eq = (got[2][both] == ref[2][both]).float().mean().item()
+        err = dt.max().item()
+        line += (f", t max abs {err:.3e} rel {rel:.3e}, tri equal "
+                 f"{tri_eq:.6f}")
+        check(rel <= 1e-4, f"{name} {what}: t differs by rel {rel:.3e}")
+        check(tri_eq >= 0.99, f"{name} {what}: tri equal on {tri_eq:.4f}")
+    return line, err
+
+
+def compare_bin_kernel(scene8, meta8, scene1):
+    """Phase 6: K2 against its plain version and against K1. Returns (K2
+    row, K1 full-frame times)."""
+    import torch
+
+    from goblin_tpu_torch.ops import trace as tt
+
+    fronts = wavefronts(scene8, meta8)
+    fronts["photon"] = photon_wavefront(scene8, meta8.settings["seed"])
+    worst, ms, k1_ms = 0.0, {}, {}
+    for name, rays in fronts.items():
+        rays = [r.contiguous() for r in rays]
+        n = rays[0].shape[0]
+        n_chunks = len(range(0, n, CHUNK))
+        live = (rays[2] < rays[3]).float().mean().item()
+        for any_hit in (False, True):
+            mode = "any-hit" if any_hit else "closest"
+            full = tt.trace_bin(scene1, *rays, any_hit=any_hit)
+            chunks = chunked(tt.trace_bin, scene1, rays, any_hit)
+            plain = tt.trace_bin_plain(scene1, *rays, any_hit=any_hit)
+            k1 = tt.trace(scene8, *rays, any_hit=any_hit)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(full, chunks)),
+                  f"{name} {mode}: chunked and full-frame K2 differ")
+            l1, e1 = compare_traces(name, mode, full, plain, "vs plain")
+            l2, _ = compare_traces(name, mode, full, k1, "vs K1")
+            worst = max(worst, e1)
+            key = f"{name}/{mode}"
+            ms[key] = {
+                "chunk": time_ms(lambda: chunked(tt.trace_bin, scene1, rays,
+                                                 any_hit), KERNEL_REPS)
+                / n_chunks,
+                "full": time_ms(lambda: tt.trace_bin(scene1, *rays,
+                                                     any_hit=any_hit),
+                                KERNEL_REPS),
+                "plain_chunk": time_ms(lambda: chunked(
+                    tt.trace_bin_plain, scene1, rays, any_hit), 1) / n_chunks,
+                "plain_full": time_ms(lambda: tt.trace_bin_plain(
+                    scene1, *rays, any_hit=any_hit), 1),
+            }
+            k1_ms[key] = {
+                "full": time_ms(lambda: tt.trace(scene8, *rays,
+                                                 any_hit=any_hit),
+                                KERNEL_REPS),
+                "plain_full": time_ms(lambda: tt.trace_plain(
+                    scene8, *rays, any_hit=any_hit), 1),
+            }
+            t = ms[key]
+            print(f"  {name:12s} {mode:8s} rays {n} live {live:.4f} hits "
+                  f"{int(plain[0].sum())} | {l1} | {l2} | K2 "
+                  f"{t['chunk']:.4f} ms per {min(n, CHUNK)}-ray chunk, "
+                  f"{t['full']:.4f} ms per {n}-ray launch; plain "
+                  f"{t['plain_chunk']:.2f} / {t['plain_full']:.2f} ms; K1 "
+                  f"{k1_ms[key]['full']:.4f} ms per {n}-ray launch, plain "
+                  f"{k1_ms[key]['plain_full']:.2f} ms", flush=True)
+    row = {
+        "name": "trace_bvh2",
+        "route": "cuda",
+        "source": "goblin_tpu_torch/csrc/trace_bvh2.cu",
+        "replaces": "goblin_tpu/ops/pallas_trace.py:114",
+        "max_abs_err": worst,
+        # the full-frame primary closest-hit launch, SPPM's shape
+        "ms": ms["primary/closest"]["full"],
+        "plain_ms": ms["primary/closest"]["plain_full"],
+        "ms_chunk": ms["primary/closest"]["chunk"],
+        "plain_ms_chunk": ms["primary/closest"]["plain_chunk"],
+    }
+    return row, k1_ms
+
+
+def compare_stats(scene8, meta8):
+    """Phase 7: the stats instance's visit census of the primary and
+    continuation wavefronts (the use goblin_tpu's tools/trace_profile.py
+    makes of it), then its counts against trace_plain's. Returns (row,
+    the census's launches)."""
+    import torch
+
+    from goblin_tpu_torch.ops import trace as tt
+
+    fronts = wavefronts(scene8, meta8)
+    names = ("primary", "continuation")
+    fronts = {name: [r.contiguous() for r in fronts[name]] for name in names}
+    tt.reset_launches()
+    census = {name: tt.trace(scene8, *fronts[name], stats=True)
+              for name in names}
+    torch.cuda.synchronize()
+    launches = tt.launches["trace_bvh8_stats"]
+    check(launches == len(names), f"census launched the stats instance "
+                                  f"{launches} times, expected {len(names)}")
+    ms, plain_ms, worst = {}, {}, 0
+    for name in names:
+        rays = fronts[name]
+        res, counts = census[name]
+        ref, ref_counts = tt.trace_plain(scene8, *rays, stats=True)
+        worst = max(worst, int((counts - ref_counts).abs().max()))
+        check(torch.equal(counts, ref_counts),
+              f"{name}: stats counts differ from the plain version's on "
+              f"{int((counts != ref_counts).any(dim=1).sum())} rays")
+        check(torch.equal(res.hit, ref.hit), f"{name}: stats hit masks differ")
+        live = rays[2] < rays[3]
+        c = counts[live].float()
+        ms[name] = time_ms(lambda: tt.trace(scene8, *rays, stats=True),
+                           KERNEL_REPS)
+        prod_ms = time_ms(lambda: tt.trace(scene8, *rays), KERNEL_REPS)
+        plain_ms[name] = time_ms(
+            lambda: tt.trace_plain(scene8, *rays, stats=True), 1)
+        print(f"  {name:12s} counts equal on {counts.shape[0]} rays; per live "
+              f"ray ({int(live.sum())}): inner visits mean "
+              f"{c[:, 0].mean().item():.3f} max {int(c[:, 0].max())}, leaf "
+              f"visits mean {c[:, 1].mean().item():.3f} max "
+              f"{int(c[:, 1].max())}, iterations mean "
+              f"{c[:, 2].mean().item():.3f} max {int(c[:, 2].max())} | stats "
+              f"kernel {ms[name]:.4f} ms per {counts.shape[0]}-ray launch "
+              f"(production instance {prod_ms:.4f} ms), plain "
+              f"{plain_ms[name]:.2f} ms", flush=True)
+    return {
+        "name": "trace_bvh8_stats",
+        "route": "cuda",
+        "source": "goblin_tpu_torch/csrc/trace_bvh8.cu",
+        "replaces": "goblin_tpu/ops/pallas_trace.py:952",
+        # largest count difference against the plain version
+        "max_abs_err": float(worst),
+        "ms": ms["primary"],
+        "plain_ms": plain_ms["primary"],
+    }, launches
+
+
+def sppm_main_path():
+    """Phase 8: bunny.json as shipped (SPPM) through render_context at
+    trace width 1 and 8. Returns {width: launches}."""
+    import numpy as np
+    import torch
+
+    from goblin_tpu_torch.integrators import sppm
+    from goblin_tpu_torch.ops import trace as tt
+    from goblin_tpu_torch.render import render_context
+
+    ovr = {"sample_per_pixel": SPPM_ITERATIONS}
+    print(f"  bunny.json as shipped, sample_per_pixel cut from 100 to "
+          f"{SPPM_ITERATIONS} iterations", flush=True)
+    ray_s = []
+    make_ray_pass = sppm.make_ray_pass
+
+    def timed_make_ray_pass(*args):
+        ray_pass = make_ray_pass(*args)
+
+        def timed(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = ray_pass(*a)
+            torch.cuda.synchronize()
+            ray_s.append(time.perf_counter() - t)
+            return out
+
+        return timed
+
+    images, counts = {}, {}
+    sppm.make_ray_pass = timed_make_ray_pass
+    try:
+        for wide in (1, 8):
+            marks, ray_s[:] = [], []
+
+            def report(done, total):
+                torch.cuda.synchronize()
+                marks.append(time.perf_counter())
+
+            torch.cuda.synchronize()
+            tt.reset_launches()
+            t0 = time.perf_counter()
+            img, meta = render_context(BUNNY, ovr, device="cuda",
+                                       report=report, trace_wide=wide)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            launches = dict(tt.launches)
+            img = img.cpu().numpy()
+            max_len = meta.settings["max_ray_depth"]
+            spec = meta.camera.film
+            n_pix = spec.x_res * spec.y_res
+            n_chunks = -(-n_pix // sppm.PHOTON_CHUNK)
+            per_it = 1 + 2 * max_len + n_chunks * max_len
+            mine = "trace_bvh2" if wide == 1 else "trace_bvh8"
+            want = {"trace_bvh8": 0, "trace_bvh8_stats": 0, "trace_bvh2": 0}
+            want[mine] = per_it * SPPM_ITERATIONS
+            its = np.diff([t0] + marks)
+            print(f"  width {wide}: {spec.x_res}x{spec.y_res} depth {max_len} "
+                  f"initial radius {meta.settings['initial_radius']}; seconds "
+                  f"per iteration {' '.join(f'{s:.3f}' for s in its)} (ray "
+                  f"pass {' '.join(f'{s:.3f}' for s in ray_s)}, photon pass "
+                  f"and update {' '.join(f'{a - b:.3f}' for a, b in zip(its, ray_s))}); "
+                  f"total {t1 - t0:.2f} s with the load; launches {launches} "
+                  f"(expected {per_it} per iteration: 1 + 2 x {max_len} ray "
+                  f"pass + {n_chunks} chunks x {max_len} photon bounces); "
+                  f"image mean {img.mean():.6f} max {img.max():.4f}",
+                  flush=True)
+            check(img.shape == (384, 512, 3), f"image shape {img.shape}")
+            check(np.isfinite(img).all(), f"width {wide}: non-finite pixels")
+            check(img.mean() > 0, f"width {wide}: image is black")
+            check(launches == want, f"width {wide}: launches {launches}, "
+                                    f"expected {want}")
+            images[wide], counts[wide] = img, launches
+    finally:
+        sppm.make_ray_pass = make_ray_pass
+    a, b = images[1], images[8]
+    close = (np.abs(a - b) <= 1e-4 + 1e-3 * np.abs(b)).all(axis=-1)
+    rel_mean = abs(a.mean() - b.mean()) / b.mean()
+    print(f"  width 1 vs width 8: pixels within 1e-4 + 1e-3 rel "
+          f"{close.mean():.6f}, means {a.mean():.6f} / {b.mean():.6f} (rel "
+          f"diff {rel_mean:.2e})", flush=True)
+    check(close.mean() >= 0.99, "width-1 and width-8 images disagree")
+    check(rel_mean <= 1e-3, "width-1 and width-8 image means disagree")
+    return counts
+
+
+def sppm_reference_check():
+    """Phase 9: a small SPPM render at width 1 on the card against the
+    plain CPU path."""
+    import numpy as np
+
+    from goblin_tpu_torch.integrators.sppm import render_sppm
+    from goblin_tpu_torch.scene.loader import load_scene
+
+    ovr = {"sample_per_pixel": 2, "max_ray_depth": 5}
+    images = []
+    for device in ("cpu", "cuda"):
+        scene, meta = load_scene(BUNNY, ovr, device=device, trace_wide=1)
+        meta.camera = dataclasses.replace(
+            meta.camera,
+            film=dataclasses.replace(meta.camera.film, x_res=48, y_res=36))
+        images.append(render_sppm(scene, meta).cpu().numpy())
+    cpu, gpu = images
+    close = (np.abs(gpu - cpu) <= 1e-4 + 1e-3 * np.abs(cpu)).all(axis=-1)
+    rel_mean = abs(gpu.mean() - cpu.mean()) / cpu.mean()
+    print(f"  48x36 2 iterations depth 5: pixels within 1e-4 + 1e-3 rel "
+          f"{close.mean():.4f}, mean card {gpu.mean():.6f} cpu "
+          f"{cpu.mean():.6f} (rel diff {rel_mean:.2e})", flush=True)
+    check(np.isfinite(gpu).all(), "card SPPM image has non-finite pixels")
+    check(cpu.mean() > 0, "CPU SPPM image is black")
+    check(close.mean() >= 0.99, "card and CPU SPPM images disagree")
+    check(rel_mean <= 1e-3, "card and CPU SPPM image means disagree")
 
 
 def run():
@@ -265,11 +573,14 @@ def run():
           flush=True)
 
     t = time.perf_counter()
-    _, log = tt.build_kernel()
-    print(f"[2] build: {time.perf_counter() - t:.2f} s", flush=True)
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "stack frame" in line:
-            print(f"  {line.strip()}")
+    builds = tt.build_kernels()
+    print(f"[2] build: {time.perf_counter() - t:.2f} s for "
+          f"{', '.join(builds)}", flush=True)
+    for name, (_, log) in builds.items():
+        for line in log.splitlines():
+            if ("registers" in line or "spill" in line
+                    or "stack frame" in line or "Compiling" in line):
+                print(f"  {name}: {line.strip()}")
 
     print("[3] kernel vs plain, bunny pass-0 wavefronts:", flush=True)
     scene, meta = load_scene(BUNNY, SETTINGS, device="cuda")
@@ -279,12 +590,42 @@ def run():
     print("[4] card vs CPU reference render:", flush=True)
     reference_check()
 
-    print("[5] main path:", flush=True)
-    row["launches"] = main_path()
+    print("[5] main path (path tracing):", flush=True)
+    pt_launches = main_path()
+
+    print("[6] binary-BVH kernel (width 1) vs plain and vs K1:", flush=True)
+    scene8, meta8 = load_scene(BUNNY, SETTINGS, device="cuda")
+    scene1, _ = load_scene(BUNNY, SETTINGS, device="cuda", trace_wide=1)
+    check(torch.equal(scene1["tri_rows"], scene8["tri_rows"]),
+          "width-1 and width-8 bakes hold different triangles")
+    k2_row, k1_full_ms = compare_bin_kernel(scene8, meta8, scene1)
+
+    print("[7] BVH8 stats instance vs plain counts:", flush=True)
+    stats_row, stats_launches = compare_stats(scene8, meta8)
+    del scene8, scene1
+
+    print("[8] SPPM, bunny.json as shipped, through render_context:",
+          flush=True)
+    sppm_counts = sppm_main_path()
+
+    print("[9] SPPM card vs CPU reference render (width 1):", flush=True)
+    sppm_reference_check()
+
     print(f"  clocks.sm, power.draw, temperature: "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
+    # every row's ms / plain_ms: the full-frame primary closest-hit launch
+    # (SPPM's shape); the K1 row keeps phase 3's 65,536-ray chunk beside it
+    row.update(ms_chunk=row["ms"], plain_ms_chunk=row["plain_ms"],
+               ms=k1_full_ms["primary/closest"]["full"],
+               plain_ms=k1_full_ms["primary/closest"]["plain_full"])
+    row["launches"] = sppm_counts[8]["trace_bvh8"]
+    row["launches_path_tracing"] = pt_launches
+    k2_row["launches"] = sppm_counts[1]["trace_bvh2"]
+    stats_row["launches"] = stats_launches
+    stats_row["launches_counted_in"] = ("phase 7's visit census; no render "
+                                        "path runs it")
     print(smi)
-    print(json.dumps({"kernels": [row]}))
+    print(json.dumps({"kernels": [row, k2_row, stats_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

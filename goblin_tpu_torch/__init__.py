@@ -6,9 +6,9 @@ neither it nor JAX. Sub-packages mirror ``goblin_tpu``'s names
 ``lights``, ``camera``, ``integrators``, ``io``) so each function's
 counterpart is found by name.
 
-The slice ported so far is the path-tracing main path of
-``examples/bunny.json``: load/bake -> raygen -> BVH8 trace (a CUDA
-kernel, ``csrc/trace_bvh8.cu``) -> shading and NEE -> film -> EXR.
-Scene features outside that slice make the loader raise
-``NotImplementedError``.
+Ported so far: ``examples/bunny.json`` rendered with path tracing and
+with SPPM, its own method: load/bake -> raygen -> BVH trace (CUDA kernels:
+``csrc/trace_bvh8.cu`` at the default trace width 8, ``csrc/trace_bvh2.cu``
+at width 1) -> shading, NEE and the photon walk -> film -> EXR. Scene
+features outside those paths make the loader raise ``NotImplementedError``.
 """

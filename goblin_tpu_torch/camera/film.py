@@ -1,5 +1,5 @@
-"""Film: reconstruction filter, accumulation buffers, dense splat and
-image output (port of goblin_tpu/camera/film.py).
+"""Film: reconstruction filter, accumulation buffers, dense and scatter
+splats and image output (port of goblin_tpu/camera/film.py).
 
 Filters are evaluated in closed form, with the reference's normalisation
 semantics (src/GoblinFilter.cpp, GoblinFilm.cpp:10-37).
@@ -87,6 +87,52 @@ def new_film(spec: FilmSpec, device):
         torch.zeros((spec.y_res, spec.x_res), dtype=torch.float32,
                     device=device),
     )
+
+
+def splat_taps(spec: FilmSpec, x, y, L):
+    """Filter taps of samples at continuous image coords x, y (R,) with
+    radiance L (R, 3) -> (flat pixel index, w, w * L) over each sample's
+    static window of candidate pixels. Taps outside the filter or the film,
+    and non-finite samples, get weight 0 (and radiance 0)."""
+    f = spec.filter
+    dx_img = x - 0.5
+    dy_img = y - 0.5
+    nan_ok = torch.isfinite(L).all(dim=-1) & torch.isfinite(x) & torch.isfinite(y)
+    kx = int(np.floor(2 * f.x_width)) + 1
+    ky = int(np.floor(2 * f.y_width)) + 1
+    x0 = torch.ceil(dx_img - f.x_width).to(torch.int32)
+    y0 = torch.ceil(dy_img - f.y_width).to(torch.int32)
+    gy, gx = torch.meshgrid(torch.arange(ky, device=x.device),
+                            torch.arange(kx, device=x.device), indexing="ij")
+    px = x0[:, None, None] + gx[None]  # (R, ky, kx)
+    py = y0[:, None, None] + gy[None]
+    fdx = px.to(torch.float32) - dx_img[:, None, None]
+    fdy = py.to(torch.float32) - dy_img[:, None, None]
+    w = f.evaluate(fdx, fdy)
+    inside = ((fdx.abs() <= f.x_width) & (fdy.abs() <= f.y_width)
+              & (px >= 0) & (px < spec.x_res) & (py >= 0) & (py < spec.y_res)
+              & nan_ok[:, None, None])
+    w = torch.where(inside, w, 0.0)
+    # a weight of 0 times a non-finite sample is still NaN: zero L first
+    L = torch.where(nan_ok[:, None], L, 0.0)
+    flat_idx = (torch.clamp(py, 0, spec.y_res - 1) * spec.x_res
+                + torch.clamp(px, 0, spec.x_res - 1)).reshape(-1)
+    return flat_idx, w.reshape(-1), (w[..., None] * L[:, None, None, :]
+                                     ).reshape(-1, 3)
+
+
+def splat_accum(color, weight, flat_idx, w_flat, wL):
+    """Scatter-add the taps of splat_taps into the film, in place."""
+    color.view(-1, 3).index_add_(0, flat_idx.long(), wL)
+    weight.view(-1).index_add_(0, flat_idx.long(), w_flat)
+    return color, weight
+
+
+def splat(spec: FilmSpec, color, weight, x, y, L):
+    """Filter-splat a batch of samples into the film (taps, then scatter);
+    adds into color and weight in place and returns them. (goblin_tpu's
+    normalized flag, for the light tracer, comes with it.)"""
+    return splat_accum(color, weight, *splat_taps(spec, x, y, L))
 
 
 def splat_dense(spec: FilmSpec, color, weight, jx, jy, L, ys0=0, xs0=0):

@@ -14,6 +14,7 @@ import torch
 
 INV_PI = 1.0 / math.pi
 TWO_PI = 2.0 * math.pi
+INV_TWO_PI = 1.0 / TWO_PI
 
 
 def dot(a, b):

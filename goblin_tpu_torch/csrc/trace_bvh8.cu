@@ -30,6 +30,13 @@
 //
 // Built with --fmad=false so products and sums round as in eager PyTorch,
 // which keeps the kernel and its plain version (trace_plain) bit-close.
+//
+// The stats variant (kStats, K1's `stats` flag) also writes per-ray int32
+// counts (inner visits, leaf visits, loop iterations) to stats (R, 3). The
+// TPU kernel counted per 1024-ray packet over the packet's union walk; here
+// the counts are per ray. Every pop visits a node (there is no pop-time
+// cull), so iterations = inner + leaf visits. The production instance
+// (kStats = false) compiles the counters out.
 
 #include <cuda_runtime.h>
 
@@ -52,6 +59,7 @@ __device__ __forceinline__ void sort_pair(float& ka, int& ea, float& kb,
   }
 }
 
+template <bool kStats>
 __global__ void __launch_bounds__(kThreads)
 trace_bvh8_kernel(const float4* __restrict__ bounds,
                   const int4* __restrict__ child,
@@ -61,9 +69,11 @@ trace_bvh8_kernel(const float4* __restrict__ bounds,
                   const float* __restrict__ maxt_in, int n_rays, int any_hit,
                   bool* __restrict__ hit_out, float* __restrict__ t_out,
                   int* __restrict__ tri_out, float* __restrict__ b1_out,
-                  float* __restrict__ b2_out, int* __restrict__ overflow) {
+                  float* __restrict__ b2_out, int* __restrict__ overflow,
+                  int* __restrict__ stats) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
+  int n_inner = 0, n_leaf = 0, n_iter = 0;
   const float kInf = __int_as_float(0x7f800000);  // key of a culled child
   const float ox = o[3 * i], oy = o[3 * i + 1], oz = o[3 * i + 2];
   const float dx = d[3 * i], dy = d[3 * i + 1], dz = d[3 * i + 2];
@@ -83,8 +93,10 @@ trace_bvh8_kernel(const float4* __restrict__ bounds,
   bool done = false;
   while (sp > 0 && !done) {
     const int e = stack[--sp];
+    if (kStats) ++n_iter;
     if (e >= 0) {
       // inner node: slab-test the 8 children
+      if (kStats) ++n_inner;
       const float4* nb = bounds + 12 * e;
       const int4 c0 = child[2 * e], c1 = child[2 * e + 1];
       int ent[kWidth] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
@@ -130,6 +142,7 @@ trace_bvh8_kernel(const float4* __restrict__ bounds,
         if (c < n_keep) stack[sp++] = ent[c];
     } else {
       // leaf: test exactly `count` triangles from `first`
+      if (kStats) ++n_leaf;
       const int dec = -(e + 1);
       const int count = dec & 127;
       const int first = (dec >> 7) * 8;
@@ -173,29 +186,57 @@ trace_bvh8_kernel(const float4* __restrict__ bounds,
   tri_out[i] = tri_best;
   b1_out[i] = b1_best;
   b2_out[i] = b2_best;
+  if (kStats) {
+    stats[3 * i] = n_inner;
+    stats[3 * i + 1] = n_leaf;
+    stats[3 * i + 2] = n_iter;
+  }
 }
 
-}  // namespace
-
-// Plain C entry for ctypes. Launches on `stream`, does not synchronise,
-// and returns cudaGetLastError() (0 on success).
-extern "C" int goblin_trace_bvh8(const void* bounds, const void* child,
-                                 const void* tris, const void* o,
-                                 const void* d, const void* mint,
-                                 const void* maxt, int n_rays, int any_hit,
-                                 void* hit, void* t, void* tri, void* b1,
-                                 void* b2, void* overflow, void* stream) {
+template <bool kStats>
+int launch(const void* bounds, const void* child, const void* tris,
+           const void* o, const void* d, const void* mint, const void* maxt,
+           int n_rays, int any_hit, void* hit, void* t, void* tri, void* b1,
+           void* b2, void* overflow, void* stats, void* stream) {
   if (n_rays > 0) {
     const int blocks = (n_rays + kThreads - 1) / kThreads;
-    trace_bvh8_kernel<<<blocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+    trace_bvh8_kernel<kStats><<<blocks, kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float4*>(bounds), static_cast<const int4*>(child),
         static_cast<const float4*>(tris), static_cast<const float*>(o),
         static_cast<const float*>(d), static_cast<const float*>(mint),
         static_cast<const float*>(maxt), n_rays, any_hit,
         static_cast<bool*>(hit), static_cast<float*>(t),
         static_cast<int*>(tri), static_cast<float*>(b1),
-        static_cast<float*>(b2), static_cast<int*>(overflow));
+        static_cast<float*>(b2), static_cast<int*>(overflow),
+        static_cast<int*>(stats));
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Plain C entries for ctypes. Each launches on `stream`, does not
+// synchronise, and returns cudaGetLastError() (0 on success).
+extern "C" int goblin_trace_bvh8(const void* bounds, const void* child,
+                                 const void* tris, const void* o,
+                                 const void* d, const void* mint,
+                                 const void* maxt, int n_rays, int any_hit,
+                                 void* hit, void* t, void* tri, void* b1,
+                                 void* b2, void* overflow, void* stream) {
+  return launch<false>(bounds, child, tris, o, d, mint, maxt, n_rays, any_hit,
+                       hit, t, tri, b1, b2, overflow, nullptr, stream);
+}
+
+// The stats variant: stats is (n_rays, 3) int32.
+extern "C" int goblin_trace_bvh8_stats(const void* bounds, const void* child,
+                                       const void* tris, const void* o,
+                                       const void* d, const void* mint,
+                                       const void* maxt, int n_rays,
+                                       int any_hit, void* hit, void* t,
+                                       void* tri, void* b1, void* b2,
+                                       void* overflow, void* stats,
+                                       void* stream) {
+  return launch<true>(bounds, child, tris, o, d, mint, maxt, n_rays, any_hit,
+                      hit, t, tri, b1, b2, overflow, stats, stream);
 }

@@ -31,6 +31,18 @@ DIM_BSDF_COMP = DIM_BASE + 5
 _BIG_T = 3.0e38
 
 
+def _em_tri_data(scene):
+    """The emissive-triangle rows the light sampling reads."""
+    return {"em_rows": scene["em_rows"]}
+
+
+def _env_le(scene, meta, d):
+    """Environment radiance for direction d: zeros, since the loader
+    refuses image-based lights (ROADMAP Queue 1 item 12)."""
+    return torch.zeros(d.shape[:-1] + (3,), dtype=torch.float32,
+                       device=d.device)
+
+
 def _area_light_Le(scene, frag, wo):
     """Emission toward wo from the hit point, one-sided (reference
     AreaLight::L: dot(ns, w) > 0). Zero for lanes that hit no emitter,
@@ -113,7 +125,9 @@ def make_li(meta, max_depth=None):
                 frag2 = {k: torch.zeros_like(v) for k, v in frag.items()}
                 frag2["light"] = torch.full_like(frag["light"], -1)
 
-            pdf_l_of_b = lt.pdf_li(lights, lid, frag2["t"])
+            cos_at_light = vm.dot(frag2["ns"], -wi)
+            pdf_l_of_b = lt.pdf_li(lights, lid, p, wi, frag2["t"],
+                                   cos_at_light, frag2["light"])
             f_weight = torch.where(
                 bs["is_specular"] | bs["is_null"], 1.0,
                 power_heuristic(1.0, pdf_b, 1.0, pdf_l_of_b),

@@ -4,8 +4,10 @@ matching parts of goblin_tpu/lights/lights.py).
 Semantics of the reference (src/GoblinLight.{h,cpp}): point Li = I / r^2;
 spot adds the cone falloff ((cos - cosMax) / (cosStart - cosMax))^4;
 directional is parallel radiance. All three are delta lights: sample_li
-returns pdf 1 and is_delta, and MIS is skipped for them. Area and
-environment lights are not in this port yet; the loader refuses them.
+returns pdf 1 and is_delta, and MIS is skipped for them. The emission side
+(sample_emission, eval_emission) starts the light walks of SPPM. Area and
+environment lights are not in this port yet: the loader and bake_lights
+refuse them (ROADMAP Queue 1 items 6b and 12), so their arms are absent.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..core import sampling as sp
 from ..core import vecmath as vm
 
 LIGHT_POINT = 0
@@ -47,9 +50,16 @@ class LightsBuild:
         return len(self.types) - 1
 
 
-def bake_lights(build: LightsBuild, world_radius: float, device) -> dict:
+def bake_lights(build: LightsBuild, world_center, world_radius: float,
+                device) -> dict:
     """-> the light table, a dict of tensors on device. Light powers feed
-    the pick CDF (reference Scene ctor, luminance of power())."""
+    the pick CDF (reference Scene ctor, luminance of power()); the world's
+    bounding sphere places directional emission."""
+    for t in build.types:
+        if t not in DELTA_LIGHTS:
+            raise NotImplementedError(
+                f"light type {t} is not in goblin_tpu_torch yet (ROADMAP "
+                "Queue 1 items 6b and 12)")
     L = max(1, len(build.types))
     types = np.asarray(build.types or [LIGHT_POINT], np.int32)
     colors = np.asarray(build.colors or [np.zeros(3)], np.float32).reshape(L, 3)
@@ -78,6 +88,8 @@ def bake_lights(build: LightsBuild, world_radius: float, device) -> dict:
                                         np.float32),
         "power": power,
         "power_cdf": np.cumsum(power) / power.sum(),
+        "world_center": np.asarray(world_center, np.float32),
+        "world_radius": np.float32(world_radius),
     }
     return {k: torch.as_tensor(v, device=device) for k, v in tables.items()}
 
@@ -136,9 +148,78 @@ def sample_li(lights, lid, p, eps):
     }
 
 
-def pdf_li(lights, lid, hit_t):
-    """Solid-angle pdf that light lid generates the BSDF ray that hit at
-    hit_t, for MIS on the BSDF-sampling side. A BSDF ray never hits a delta
-    light, so for every light this port loads it is 0 (goblin_tpu's area
-    and sphere arms come with area lights)."""
+def pdf_li(lights, lid, p, wi, hit_t, hit_cos, hit_light):
+    """Solid-angle pdf that light lid generates direction wi from p, given
+    the BSDF ray's hit (t, cosine at the light, hit light id), for MIS on
+    the BSDF-sampling side. A BSDF ray never hits a delta light, so for
+    every light this port loads it is 0 (goblin_tpu's area and sphere arms
+    come with area lights)."""
     return torch.zeros_like(hit_t)
+
+
+def sample_emission(lights, tri_data, lid, u_p1, u_p2, u_d1, u_d2):
+    """Photon emission (the light walk's start), reference
+    samplePosition / sampleDirection: point -> uniform sphere; spot ->
+    uniform cone; directional -> a point on the disk of the world's
+    bounding sphere, fixed direction.
+
+    tri_data: {"em_rows": (E, 12)} emissive triangles; refused unless empty.
+    Returns dict: p (R, 3), n (R, 3) (zeros: delta positions), dir (R, 3),
+    pdf_pos (R,), pdf_dir (R,), is_delta (R,).
+    """
+    if tri_data["em_rows"].shape[0]:
+        raise NotImplementedError("area-light emission is not in "
+                                  "goblin_tpu_torch yet (ROADMAP Queue 1 "
+                                  "item 6b)")
+    ltype = lights["type"][lid]
+    lpos = lights["position"][lid]
+    ldir = lights["direction"][lid]
+    wc = lights["world_center"]
+    wr = lights["world_radius"]
+    ctm = lights["cos_theta_max"][lid]
+    is_point = ltype == LIGHT_POINT
+    is_dir = ltype == LIGHT_DIRECTIONAL
+    is_spot = ltype == LIGHT_SPOT
+
+    x_ax, y_ax = vm.coordinate_system(ldir)
+    disk = sp.uniform_sample_disk(u_p1, u_p2)
+    p_dir = (wc + wr * (disk[..., 0:1] * x_ax + disk[..., 1:2] * y_ax)
+             - ldir * wr)
+    p = torch.where(is_dir[..., None], p_dir, lpos)
+    pdf_pos = torch.where(is_dir, 1.0 / (np.pi * wr * wr), 1.0)
+
+    d_sphere = sp.uniform_sample_sphere(u_d1, u_d2)
+    cone = sp.uniform_sample_cone(u_d1, u_d2, ctm)
+    d_cone = (cone[..., 0:1] * x_ax + cone[..., 1:2] * y_ax
+              + cone[..., 2:3] * ldir)
+    d = torch.where(is_dir[..., None], ldir,
+                    torch.where(is_spot[..., None], d_cone, d_sphere))
+    pdf_dir = torch.where(
+        is_point, sp.uniform_sphere_pdf(),
+        torch.where(is_spot, sp.uniform_cone_pdf(ctm), 1.0))
+    return {
+        "p": p, "n": torch.zeros_like(p), "dir": d,
+        "pdf_pos": pdf_pos, "pdf_dir": pdf_dir,
+        "is_delta": is_point | is_dir | is_spot,
+    }
+
+
+def eval_emission(lights, lid, n_light, wo, env_le=None):
+    """Emitted intensity / radiance toward wo (reference Light::eval):
+    point -> I; spot -> I times the cone falloff; directional -> L only
+    along its own direction. env_le, the environment's radiance, belongs
+    to image-based lights, which are refused (ROADMAP Queue 1 item 12)."""
+    if env_le is not None:
+        raise NotImplementedError("image-based light emission is not in "
+                                  "goblin_tpu_torch yet (ROADMAP Queue 1 "
+                                  "item 12)")
+    ltype = lights["type"][lid]
+    lcolor = lights["color"][lid]
+    spot = spot_falloff(lights, lid, wo)[..., None] * lcolor
+    parallel = (vm.dot(wo, lights["direction"][lid]) - 1.0).abs() < 1e-5
+    dir_e = torch.where(parallel[..., None], lcolor, 0.0)
+    return torch.where(
+        (ltype == LIGHT_POINT)[..., None], lcolor,
+        torch.where((ltype == LIGHT_SPOT)[..., None], spot,
+                    torch.where((ltype == LIGHT_DIRECTIONAL)[..., None],
+                                dir_e, 0.0)))

@@ -1,19 +1,25 @@
-"""BVH8 ray traversal: host-side layout, the CUDA kernel's wrapper, and its
-plain PyTorch version.
+"""BVH ray traversal: host-side layouts, the CUDA kernels' wrappers, and
+their plain PyTorch versions.
 
-Port of goblin_tpu/ops/pallas_trace.py's wide-BVH path: ``collapse8`` is
-``collapse4(width=8)`` without the TPU bias packing, and ``trace`` has the
-contract of ``trace_packets4``: closest-hit returns (hit, t, tri, b1, b2)
-with t = 3e38 on a miss and tri in BVH order; any-hit stops a ray at its
-first accepted triangle, and then only ``hit`` is defined.
+Port of goblin_tpu/ops/pallas_trace.py's two traversals, with one contract
+(``trace_packets`` / ``trace_packets4``'s): closest-hit returns (hit, t,
+tri, b1, b2) with t = 3e38 on a miss and tri in BVH order; any-hit stops a
+ray at its first accepted triangle, and then only ``hit`` is defined.
 
-On a CUDA tensor ``trace`` launches csrc/trace_bvh8.cu (built with nvcc at
-first use, bound with ctypes) and never falls back; on a CPU tensor it runs
-``trace_plain``, the same traversal in vectorised lockstep.
+- Width 8 (the default): ``collapse8`` is ``collapse4(width=8)`` without
+  the TPU bias packing; ``trace`` launches csrc/trace_bvh8.cu, and with
+  ``stats=True`` its instance that also counts per-ray node visits.
+- Width 1: ``bin_tables`` is ``pack_scene``'s per-node layout of the
+  binary tree; ``trace_bin`` launches csrc/trace_bvh2.cu.
+
+On a CUDA tensor a wrapper launches its kernel (built with nvcc at first
+use, bound with ctypes) and never falls back; on a CPU tensor it runs the
+plain version, the same traversal in vectorised lockstep.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
@@ -27,14 +33,21 @@ import numpy as np
 import torch
 
 WIDTH = 8
-STACK = 64  # per-ray stack entries, in the kernel and trace_plain
+STACK = 64  # BVH8 per-ray stack entries, in the kernel and trace_plain
+# binary per-ray stack entries, in the kernel and trace_bin_plain: bunny's
+# binary tree has depth 14 (15 entries), so 32 leaves a 2x margin
+BIN_STACK = 32
 EMPTY = -1  # child entry of an unused slot
 BIG_T = 3.0e38
 _TINY = 1e-30
 _TRI_EPS = 1e-7
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNEL_SOURCE = os.path.join(_PKG, "csrc", "trace_bvh8.cu")
+# kernel name -> CUDA source; each builds into its own library
+KERNEL_SOURCES = {
+    "trace_bvh8": os.path.join(_PKG, "csrc", "trace_bvh8.cu"),
+    "trace_bvh2": os.path.join(_PKG, "csrc", "trace_bvh2.cu"),
+}
 _BUILD_DIR = os.path.join(_PKG, "_build")
 # --fmad=false: no contraction into FMA, so the kernel rounds as eager
 # PyTorch (and trace_plain) does
@@ -43,14 +56,14 @@ NVCC_FLAGS = (
     "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-# CUDA kernel launches since the last reset (chip_smoke.py reads it to show
-# that a render went through the kernel)
-launches = 0
+# CUDA kernel launches per kernel since the last reset (chip_smoke.py reads
+# them to show that a render went through the kernels)
+launches = {"trace_bvh8": 0, "trace_bvh8_stats": 0, "trace_bvh2": 0}
 
 
 def reset_launches() -> None:
-    global launches
-    launches = 0
+    for name in launches:
+        launches[name] = 0
 
 
 class TraceResult(NamedTuple):
@@ -146,32 +159,84 @@ def tri_rows(soup: np.ndarray) -> np.ndarray:
     return out
 
 
+def bin_tables(bounds: np.ndarray, meta: np.ndarray):
+    """Binary BVH (pre-order, skip links) -> the width-1 kernel's tables,
+    pack_scene's per-node lanes: (bin_bounds (N, 8) f32 = [bmin xyz, bmax
+    xyz, 0, 0], bin_meta (N, 4) i32 = [first tri | right child, count,
+    miss, 0]). An inner node (count 0) carries its right child, the miss
+    link of its left child j + 1, in the first field, so one load resolves
+    both children."""
+    n = bounds.shape[0]
+    nb = np.zeros((n, 8), np.float32)
+    nb[:, :6] = bounds
+    nm = np.zeros((n, 4), np.int32)
+    nm[:, :3] = meta
+    inner = meta[:, 1] == 0
+    left = np.arange(n) + 1
+    right = np.where(left < n, meta[np.minimum(left, n - 1), 2], 0)
+    nm[:, 0] = np.where(inner, right, meta[:, 0])
+    return nb, nm
+
+
+def bin_depth(meta: np.ndarray) -> int:
+    """Inner nodes on the longest root-to-leaf path of a binary tree
+    (0 for a single leaf)."""
+    depth = np.zeros(meta.shape[0], np.int64)
+    for j in range(meta.shape[0]):  # pre-order: parents come first
+        if meta[j, 1] == 0:
+            depth[j + 1] = depth[meta[j + 1, 2]] = depth[j] + 1
+    return int(depth.max())
+
+
+def bin_stack_bound(depth: int) -> int:
+    """Most stack entries a binary traversal of a tree of this depth can
+    hold: a visit pops one entry and pushes at most 2."""
+    return depth + 1
+
+
 # ---------------------------------------------------------------------------
 # Dispatch
 # ---------------------------------------------------------------------------
 
+_BVH8_TABLES = {"bvh8_bounds": torch.float32, "bvh8_child": torch.int32,
+                "tri_rows": torch.float32}
+_BIN_TABLES = {"bin_bounds": torch.float32, "bin_meta": torch.int32,
+               "tri_rows": torch.float32}
 
-def trace(scene, o, d, mint, maxt, any_hit: bool = False) -> TraceResult:
+
+def trace(scene, o, d, mint, maxt, any_hit: bool = False,
+          stats: bool = False):
     """Trace rays (o, d (R, 3); mint, maxt (R,)) through the scene's BVH8
-    tables: the CUDA kernel for CUDA tensors, trace_plain for CPU ones."""
+    tables: the CUDA kernel for CUDA tensors, trace_plain for CPU ones.
+    Returns a TraceResult; with stats=True, (TraceResult, counts (R, 3)
+    int32 of inner visits, leaf visits and loop iterations per ray)."""
     if o.device.type == "cuda":
-        return _trace_cuda(scene, o, d, mint, maxt, any_hit)
+        return _trace_cuda(scene, o, d, mint, maxt, any_hit, stats)
     if o.device.type == "cpu":
-        return trace_plain(scene, o, d, mint, maxt, any_hit)
+        return trace_plain(scene, o, d, mint, maxt, any_hit, stats)
     raise ValueError(f"trace: no traversal for device {o.device}")
 
 
-def _check_inputs(scene, o, d, mint, maxt):
+def trace_bin(scene, o, d, mint, maxt, any_hit: bool = False) -> TraceResult:
+    """Trace rays through the scene's binary tables (bin_tables): the CUDA
+    kernel for CUDA tensors, trace_bin_plain for CPU ones."""
+    if o.device.type == "cuda":
+        return _trace_bin_cuda(scene, o, d, mint, maxt, any_hit)
+    if o.device.type == "cpu":
+        return trace_bin_plain(scene, o, d, mint, maxt, any_hit)
+    raise ValueError(f"trace_bin: no traversal for device {o.device}")
+
+
+def _check_inputs(scene, tables, o, d, mint, maxt):
     R = o.shape[0]
     want = {
         "o": (o, torch.float32, (R, 3)),
         "d": (d, torch.float32, (R, 3)),
         "mint": (mint, torch.float32, (R,)),
         "maxt": (maxt, torch.float32, (R,)),
-        "bvh8_bounds": (scene["bvh8_bounds"], torch.float32, None),
-        "bvh8_child": (scene["bvh8_child"], torch.int32, None),
-        "tri_rows": (scene["tri_rows"], torch.float32, None),
     }
+    want.update({name: (scene[name], dtype, None)
+                 for name, dtype in tables.items()})
     for name, (x, dtype, shape) in want.items():
         if x.device != o.device:
             raise ValueError(f"trace: {name} is on {x.device}, rays on {o.device}")
@@ -182,51 +247,75 @@ def _check_inputs(scene, o, d, mint, maxt):
                              f"{tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError(f"trace: {name} must be contiguous")
-    n8 = scene["bvh8_child"].shape[0]
-    if tuple(scene["bvh8_bounds"].shape) != (n8, 6, WIDTH) or \
-            tuple(scene["bvh8_child"].shape) != (n8, WIDTH) or \
-            scene["tri_rows"].shape[1:] != (12,):
-        raise ValueError("trace: BVH8 tables have the wrong layout")
+    if scene["tri_rows"].shape[1:] != (12,):
+        raise ValueError("trace: tri_rows must be (T, 12)")
+    if "bvh8_child" in tables:
+        n8 = scene["bvh8_child"].shape[0]
+        if tuple(scene["bvh8_bounds"].shape) != (n8, 6, WIDTH) or \
+                tuple(scene["bvh8_child"].shape) != (n8, WIDTH):
+            raise ValueError("trace: BVH8 tables have the wrong layout")
+    else:
+        n = scene["bin_meta"].shape[0]
+        if tuple(scene["bin_bounds"].shape) != (n, 8) or \
+                tuple(scene["bin_meta"].shape) != (n, 4):
+            raise ValueError("trace_bin: binary tables have the wrong layout")
 
 
-def build_kernel() -> tuple[str, str]:
-    """Compile csrc/trace_bvh8.cu with nvcc into the package's _build
+def build_kernel(name: str = "trace_bvh8") -> tuple[str, str]:
+    """Compile KERNEL_SOURCES[name] with nvcc into the package's _build
     directory, keyed by a hash of the source and flags; a library already
     built is reused. Returns (library path, compiler output)."""
-    with open(KERNEL_SOURCE, "rb") as f:
+    source = KERNEL_SOURCES[name]
+    with open(source, "rb") as f:
         src = f.read()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = os.path.join(_BUILD_DIR, f"trace_bvh8-{key}.so")
+    lib_path = os.path.join(_BUILD_DIR, f"{name}-{key}.so")
     if os.path.exists(lib_path):
         return lib_path, ""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
-        raise RuntimeError("trace_bvh8: nvcc not found (needs the CUDA toolkit)")
+        raise RuntimeError(f"{name}: nvcc not found (needs the CUDA toolkit)")
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, KERNEL_SOURCE],
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, source],
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
-        raise RuntimeError(f"trace_bvh8: nvcc failed\n{proc.stdout}{proc.stderr}")
+        raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, lib_path)
     return lib_path, proc.stdout + proc.stderr
 
 
+def build_kernels() -> dict:
+    """Build every kernel at once, one nvcc per source started together.
+    Returns {name: (library path, compiler output)}."""
+    with concurrent.futures.ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        futures = {name: pool.submit(build_kernel, name)
+                   for name in KERNEL_SOURCES}
+        return {name: f.result() for name, f in futures.items()}
+
+
 @functools.cache
-def _kernel_lib():
-    lib = ctypes.CDLL(build_kernel()[0])
+def _kernel_lib(name: str):
+    lib = ctypes.CDLL(build_kernel(name)[0])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.goblin_trace_bvh8.argtypes = [ptr] * 7 + [i32, i32] + [ptr] * 7
-    lib.goblin_trace_bvh8.restype = i32
+    if name == "trace_bvh8":
+        lib.goblin_trace_bvh8.argtypes = [ptr] * 7 + [i32, i32] + [ptr] * 7
+        lib.goblin_trace_bvh8.restype = i32
+        lib.goblin_trace_bvh8_stats.argtypes = ([ptr] * 7 + [i32, i32]
+                                                + [ptr] * 8)
+        lib.goblin_trace_bvh8_stats.restype = i32
+    else:
+        lib.goblin_trace_bvh2.argtypes = [ptr] * 7 + [i32, i32] + [ptr] * 7
+        lib.goblin_trace_bvh2.restype = i32
     return lib
 
 
-def _trace_cuda(scene, o, d, mint, maxt, any_hit):
-    global launches
-    _check_inputs(scene, o, d, mint, maxt)
-    for name in ("bvh8_bounds", "bvh8_child", "tri_rows"):
-        if scene[name].data_ptr() % 16:
-            raise ValueError(f"trace: {name} must be 16-byte aligned")
+def _launch(entry, counter, tables, o, d, mint, maxt, any_hit, extra=()):
+    """Allocate the outputs, launch `entry` of a kernel library on the
+    current stream, and count the launch. Returns the TraceResult."""
+    for t in tables:
+        if t.data_ptr() % 16:
+            raise ValueError("trace: scene tables must be 16-byte aligned")
     R = o.shape[0]
     dev = o.device
     hit = torch.empty(R, dtype=torch.bool, device=dev)
@@ -237,52 +326,150 @@ def _trace_cuda(scene, o, d, mint, maxt, any_hit):
     if R == 0:
         return TraceResult(hit, t, tri, b1, b2)
     overflow = torch.zeros(1, dtype=torch.int32, device=dev)
-    lib = _kernel_lib()
     with torch.cuda.device(dev):
-        err = lib.goblin_trace_bvh8(
-            scene["bvh8_bounds"].data_ptr(), scene["bvh8_child"].data_ptr(),
-            scene["tri_rows"].data_ptr(), o.data_ptr(), d.data_ptr(),
+        err = entry(
+            *(x.data_ptr() for x in tables), o.data_ptr(), d.data_ptr(),
             mint.data_ptr(), maxt.data_ptr(), R, int(any_hit),
             hit.data_ptr(), t.data_ptr(), tri.data_ptr(), b1.data_ptr(),
-            b2.data_ptr(), overflow.data_ptr(),
+            b2.data_ptr(), overflow.data_ptr(), *(x.data_ptr() for x in extra),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"trace_bvh8: launch failed with CUDA error {err}")
-    launches += 1
+        raise RuntimeError(f"{counter}: launch failed with CUDA error {err}")
+    launches[counter] += 1
     # raises at the next synchronisation if a ray's stack overflowed
     torch._assert_async(overflow[0] == 0)
     return TraceResult(hit, t, tri, b1, b2)
 
 
+def _trace_cuda(scene, o, d, mint, maxt, any_hit, stats):
+    _check_inputs(scene, _BVH8_TABLES, o, d, mint, maxt)
+    lib = _kernel_lib("trace_bvh8")
+    tables = [scene[name] for name in _BVH8_TABLES]
+    if not stats:
+        return _launch(lib.goblin_trace_bvh8, "trace_bvh8", tables, o, d,
+                       mint, maxt, any_hit)
+    counts = torch.zeros((o.shape[0], 3), dtype=torch.int32, device=o.device)
+    res = _launch(lib.goblin_trace_bvh8_stats, "trace_bvh8_stats", tables,
+                  o, d, mint, maxt, any_hit, extra=(counts,))
+    return res, counts
+
+
+def _trace_bin_cuda(scene, o, d, mint, maxt, any_hit):
+    _check_inputs(scene, _BIN_TABLES, o, d, mint, maxt)
+    return _launch(_kernel_lib("trace_bvh2").goblin_trace_bvh2, "trace_bvh2",
+                   [scene[name] for name in _BIN_TABLES], o, d, mint, maxt,
+                   any_hit)
+
+
 # ---------------------------------------------------------------------------
-# Plain version
+# Plain versions
 # ---------------------------------------------------------------------------
 
 
-def trace_plain(scene, o, d, mint, maxt, any_hit: bool = False) -> TraceResult:
-    """The kernel's traversal in plain PyTorch, vectorised over rays.
+class _Best:
+    """Per-ray best hit of a lockstep traversal."""
+
+    def __init__(self, maxt):
+        R, dev = maxt.shape[0], maxt.device
+        self.t = torch.clamp(maxt, max=BIG_T)
+        self.tri = torch.full((R,), -1, dtype=torch.int32, device=dev)
+        self.b1 = torch.zeros(R, dtype=torch.float32, device=dev)
+        self.b2 = torch.zeros(R, dtype=torch.float32, device=dev)
+
+    def result(self) -> TraceResult:
+        hit = self.tri >= 0
+        return TraceResult(hit, torch.where(hit, self.t, BIG_T), self.tri,
+                           self.b1, self.b2)
+
+
+def _leaf_tests(tris, o, d, mint, best, rl, first, count, any_hit):
+    """Moller-Trumbore of triangles first .. first + count - 1 for each
+    lane rl, with the kernels' arithmetic and their sequential accept rule
+    (mint <= t <= t_best, so of equal t the last triangle tested wins;
+    any-hit keeps the first accepted). Updates best in place and returns
+    the lanes that accepted a triangle."""
+    dev = o.device
+    k = torch.arange(int(count.max()), device=dev)
+    valid = k[None, :] < count[:, None]
+    idx = torch.clamp(first[:, None] + k[None, :], max=tris.shape[0] - 1)
+    tr = tris[idx]  # (n, K, 12)
+    v0x, v0y, v0z = tr[..., 0], tr[..., 1], tr[..., 2]
+    e1x, e1y, e1z = tr[..., 3], tr[..., 4], tr[..., 5]
+    e2x, e2y, e2z = tr[..., 6], tr[..., 7], tr[..., 8]
+    ox, oy, oz = (o[rl, c][:, None] for c in range(3))
+    dx, dy, dz = (d[rl, c][:, None] for c in range(3))
+    s1x = dy * e2z - dz * e2y
+    s1y = dz * e2x - dx * e2z
+    s1z = dx * e2y - dy * e2x
+    div = s1x * e1x + s1y * e1y + s1z * e1z
+    inv_div = 1.0 / torch.where(div == 0.0, _TINY, div)
+    sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+    b1 = (sx * s1x + sy * s1y + sz * s1z) * inv_div
+    s2x = sy * e1z - sz * e1y
+    s2y = sz * e1x - sx * e1z
+    s2z = sx * e1y - sy * e1x
+    b2 = (dx * s2x + dy * s2y + dz * s2z) * inv_div
+    t = (e2x * s2x + e2y * s2y + e2z * s2z) * inv_div
+    ok = (valid & (div != 0.0)
+          & (b1 + _TRI_EPS >= 0.0) & (b1 - _TRI_EPS <= 1.0)
+          & (b2 + _TRI_EPS >= 0.0) & (b1 + b2 - _TRI_EPS <= 1.0)
+          & (t >= mint[rl][:, None]) & (t <= best.t[rl][:, None]))
+    kk = k[None, :].expand_as(ok)
+    if any_hit:
+        # the kernels stop at the first accepted triangle
+        win = torch.where(ok, kk, k.numel()).min(dim=1).values
+    else:
+        # sequential t <= t_best: the smallest t wins, and of equal
+        # smallest t the last triangle tested
+        tm = torch.where(ok, t, float("inf"))
+        tmin = tm.min(dim=1).values
+        win = torch.where(ok & (tm == tmin[:, None]), kk, -1)
+        win = win.max(dim=1).values
+    got = ok.any(dim=1)
+    lanes = rl[got]
+    w = win[got][:, None]
+    best.t[lanes] = torch.gather(t[got], 1, w)[:, 0]
+    best.tri[lanes] = (first[got] + win[got]).to(torch.int32)
+    best.b1[lanes] = torch.gather(b1[got], 1, w)[:, 0]
+    best.b2[lanes] = torch.gather(b2[got], 1, w)[:, 0]
+    return lanes
+
+
+def _slab(lo, hi, o, inv, mint, t_best):
+    """Entry and exit distances of boxes [lo, hi] (n, 3, ...) for rays
+    (n, 3, 1), clipped to [mint, t_best] (n, 1)."""
+    t0 = (lo - o) * inv
+    t1 = (hi - o) * inv
+    near, far = torch.minimum(t0, t1), torch.maximum(t0, t1)
+    tn = torch.maximum(torch.maximum(near[:, 0], near[:, 1]), near[:, 2])
+    tf = torch.minimum(torch.minimum(far[:, 0], far[:, 1]), far[:, 2])
+    return torch.maximum(tn, mint), torch.minimum(tf, t_best)
+
+
+def trace_plain(scene, o, d, mint, maxt, any_hit: bool = False,
+                stats: bool = False):
+    """The BVH8 kernel's traversal in plain PyTorch, vectorised over rays.
 
     Every ray keeps its own stack in a (R, 64) tensor. Each step pops one
     entry per live ray: an inner node slab-tests its 8 children and pushes
     the kept ones far to near (a stable sort on entry distance, the
     kernel's order); a leaf tests its triangles with the kernel's
     arithmetic and accept rule. Steps repeat until every stack is empty.
+    With stats=True also returns the kernel's per-ray counts (R, 3): inner
+    visits, leaf visits, loop iterations.
     """
-    _check_inputs(scene, o, d, mint, maxt)
+    _check_inputs(scene, _BVH8_TABLES, o, d, mint, maxt)
     bounds, child, tris = (scene["bvh8_bounds"], scene["bvh8_child"],
                            scene["tri_rows"])
     R = o.shape[0]
     dev = o.device
     inv = 1.0 / torch.where(d == 0.0, _TINY, d)
-    t_best = torch.clamp(maxt, max=BIG_T)
-    tri_best = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    b1_best = torch.zeros(R, dtype=torch.float32, device=dev)
-    b2_best = torch.zeros(R, dtype=torch.float32, device=dev)
+    best = _Best(maxt)
+    counts = torch.zeros((R, 3), dtype=torch.int32, device=dev)
     stack = torch.zeros((R, STACK), dtype=torch.int32, device=dev)
-    sp = (mint < t_best).to(torch.int64)  # a dead lane skips the root
+    sp = (mint < best.t).to(torch.int64)  # a dead lane skips the root
     slots = torch.arange(WIDTH, device=dev)
-    inf = float("inf")
     while True:
         live = torch.nonzero(sp > 0).squeeze(1)
         if live.numel() == 0:
@@ -290,24 +477,21 @@ def trace_plain(scene, o, d, mint, maxt, any_hit: bool = False) -> TraceResult:
         sp[live] -= 1
         e = stack[live, sp[live]]
         inner = e >= 0
+        counts[live, 2] += 1
 
         ri = live[inner]
         if ri.numel():
+            counts[ri, 0] += 1
             node = e[inner].long()
             nb = bounds[node]  # (n, 6, 8)
             ent = child[node]  # (n, 8)
-            oo, ii = o[ri][:, :, None], inv[ri][:, :, None]
-            t0 = (nb[:, 0:3] - oo) * ii
-            t1 = (nb[:, 3:6] - oo) * ii
-            lo, hi = torch.minimum(t0, t1), torch.maximum(t0, t1)
-            tn = torch.maximum(torch.maximum(lo[:, 0], lo[:, 1]), lo[:, 2])
-            tf = torch.minimum(torch.minimum(hi[:, 0], hi[:, 1]), hi[:, 2])
-            tn = torch.maximum(tn, mint[ri][:, None])
-            tf = torch.minimum(tf, t_best[ri][:, None])
-            key = torch.where((ent != EMPTY) & (tn <= tf), tn, inf)
+            tn, tf = _slab(nb[:, 0:3], nb[:, 3:6], o[ri][:, :, None],
+                           inv[ri][:, :, None], mint[ri][:, None],
+                           best.t[ri][:, None])
+            key = torch.where((ent != EMPTY) & (tn <= tf), tn, float("inf"))
             key, order = torch.sort(key, dim=1, stable=True)
             ent = torch.gather(ent, 1, order)
-            kept = key < inf
+            kept = key < float("inf")
             n_keep = kept.sum(dim=1)
             base = sp[ri]
             if int((base + n_keep).max()) > STACK:
@@ -320,54 +504,84 @@ def trace_plain(scene, o, d, mint, maxt, any_hit: bool = False) -> TraceResult:
 
         rl = live[~inner]
         if rl.numel():
+            counts[rl, 1] += 1
             dec = -(e[~inner].long() + 1)
-            count = dec & 127
-            first = (dec >> 7) * 8
-            k = torch.arange(int(count.max()), device=dev)
-            valid = k[None, :] < count[:, None]
-            idx = torch.clamp(first[:, None] + k[None, :], max=tris.shape[0] - 1)
-            tr = tris[idx]  # (n, K, 12)
-            v0x, v0y, v0z = tr[..., 0], tr[..., 1], tr[..., 2]
-            e1x, e1y, e1z = tr[..., 3], tr[..., 4], tr[..., 5]
-            e2x, e2y, e2z = tr[..., 6], tr[..., 7], tr[..., 8]
-            ox, oy, oz = (o[rl, c][:, None] for c in range(3))
-            dx, dy, dz = (d[rl, c][:, None] for c in range(3))
-            s1x = dy * e2z - dz * e2y
-            s1y = dz * e2x - dx * e2z
-            s1z = dx * e2y - dy * e2x
-            div = s1x * e1x + s1y * e1y + s1z * e1z
-            inv_div = 1.0 / torch.where(div == 0.0, _TINY, div)
-            sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
-            b1 = (sx * s1x + sy * s1y + sz * s1z) * inv_div
-            s2x = sy * e1z - sz * e1y
-            s2y = sz * e1x - sx * e1z
-            s2z = sx * e1y - sy * e1x
-            b2 = (dx * s2x + dy * s2y + dz * s2z) * inv_div
-            t = (e2x * s2x + e2y * s2y + e2z * s2z) * inv_div
-            ok = (valid & (div != 0.0)
-                  & (b1 + _TRI_EPS >= 0.0) & (b1 - _TRI_EPS <= 1.0)
-                  & (b2 + _TRI_EPS >= 0.0) & (b1 + b2 - _TRI_EPS <= 1.0)
-                  & (t >= mint[rl][:, None]) & (t <= t_best[rl][:, None]))
-            kk = k[None, :].expand_as(ok)
-            if any_hit:
-                # the kernel stops at the first accepted triangle
-                win = torch.where(ok, kk, k.numel()).min(dim=1).values
-            else:
-                # sequential t <= t_best: the smallest t wins, and of equal
-                # smallest t the last triangle tested
-                tm = torch.where(ok, t, inf)
-                tmin = tm.min(dim=1).values
-                win = torch.where(ok & (tm == tmin[:, None]), kk, -1)
-                win = win.max(dim=1).values
-            got = ok.any(dim=1)
-            lanes = rl[got]
-            w = win[got][:, None]
-            t_best[lanes] = torch.gather(t[got], 1, w)[:, 0]
-            tri_best[lanes] = (first[got] + win[got]).to(torch.int32)
-            b1_best[lanes] = torch.gather(b1[got], 1, w)[:, 0]
-            b2_best[lanes] = torch.gather(b2[got], 1, w)[:, 0]
+            lanes = _leaf_tests(tris, o, d, mint, best, rl, (dec >> 7) * 8,
+                                dec & 127, any_hit)
             if any_hit:
                 sp[lanes] = 0
-    hit = tri_best >= 0
-    return TraceResult(hit, torch.where(hit, t_best, BIG_T), tri_best,
-                       b1_best, b2_best)
+    if stats:
+        return best.result(), counts
+    return best.result()
+
+
+def trace_bin_plain(scene, o, d, mint, maxt,
+                    any_hit: bool = False) -> TraceResult:
+    """The binary kernel's traversal in plain PyTorch, vectorised over rays.
+
+    Every ray keeps its own stack of (node, entry distance) in (R, 32)
+    tensors, starting with the root at entry distance -3e38. Each step pops
+    one entry per live ray and skips it if it was entered beyond the ray's
+    best t; an inner node box-tests both children and pushes the hit ones
+    far then near (near: the smaller entry distance, ties to the left
+    child); a leaf tests its triangles as trace_plain does. Steps repeat
+    until every stack is empty.
+    """
+    _check_inputs(scene, _BIN_TABLES, o, d, mint, maxt)
+    bounds, meta, tris = (scene["bin_bounds"], scene["bin_meta"],
+                          scene["tri_rows"])
+    R = o.shape[0]
+    dev = o.device
+    inv = 1.0 / torch.where(d == 0.0, _TINY, d)
+    best = _Best(maxt)
+    stack = torch.zeros((R, BIN_STACK), dtype=torch.int64, device=dev)
+    stack_tn = torch.full((R, BIN_STACK), -BIG_T, dtype=torch.float32,
+                          device=dev)
+    sp = torch.ones(R, dtype=torch.int64, device=dev)  # the root
+    while True:
+        live = torch.nonzero(sp > 0).squeeze(1)
+        if live.numel() == 0:
+            break
+        sp[live] -= 1
+        node = stack[live, sp[live]]
+        keep = stack_tn[live, sp[live]] <= best.t[live]
+        live, node = live[keep], node[keep]
+        m = meta[node]  # (n, 4)
+        inner = m[:, 1] == 0
+
+        ri = live[inner]
+        if ri.numel():
+            kids = torch.stack([node[inner] + 1, m[inner, 0].long()], dim=1)
+            nb = bounds[kids]  # (n, 2, 8)
+            tn, tf = _slab(nb[..., 0:3].transpose(1, 2),
+                           nb[..., 3:6].transpose(1, 2), o[ri][:, :, None],
+                           inv[ri][:, :, None], mint[ri][:, None],
+                           best.t[ri][:, None])
+            tmin = torch.where(tn <= tf, tn, BIG_T)  # (n, 2): left, right
+            l_near = tmin[:, 0] <= tmin[:, 1]
+            near = torch.where(l_near, kids[:, 0], kids[:, 1])
+            far = torch.where(l_near, kids[:, 1], kids[:, 0])
+            near_tn = torch.minimum(tmin[:, 0], tmin[:, 1])
+            far_tn = torch.maximum(tmin[:, 0], tmin[:, 1])
+            push_far, push_near = far_tn < BIG_T, near_tn < BIG_T
+            base = sp[ri]
+            top = base + push_far.long() + push_near.long()
+            if int(top.max()) > BIN_STACK:
+                raise RuntimeError("trace_bin_plain: traversal stack overflow")
+            rf = ri[push_far]
+            stack[rf, base[push_far]] = far[push_far]
+            stack_tn[rf, base[push_far]] = far_tn[push_far]
+            pos = base + push_far.long()
+            rn = ri[push_near]
+            stack[rn, pos[push_near]] = near[push_near]
+            stack_tn[rn, pos[push_near]] = near_tn[push_near]
+            sp[ri] = top
+
+        rl = live[~inner]
+        if rl.numel():
+            lanes = _leaf_tests(tris, o, d, mint, best, rl,
+                                m[~inner, 0].long(), m[~inner, 1].long(),
+                                any_hit)
+            if any_hit:
+                sp[lanes] = 0
+    return best.result()

@@ -1,8 +1,9 @@
 """Scene file -> image, and the command line (port of goblin_tpu/render.py
-for the path_tracing method).
+for the path_tracing and sppm methods).
 
     python -m goblin_tpu_torch scene.json [render_method] [--device cuda|cpu]
 
+The method defaults to the scene's own render_setting (bunny.json: sppm).
 The device defaults to cuda; asking for cuda without a card raises, and
 the CPU (the kernels' plain versions) runs only when asked for.
 """
@@ -20,6 +21,7 @@ from .integrators import common
 from .scene.loader import load_scene
 
 PATH_METHODS = ("path_tracing", "path")
+SPLAT_METHODS = ("light_tracing", "bdpt", "sppm")
 
 
 def make_li(meta):
@@ -31,7 +33,7 @@ def make_li(meta):
         return mk(meta)
     raise NotImplementedError(
         f"render_method {method!r} is not in goblin_tpu_torch yet "
-        "(ROADMAP Queue 1 items 9-11)"
+        "(ROADMAP Queue 1 items 9-10)"
     )
 
 
@@ -44,9 +46,21 @@ def resolve_device(name: str) -> torch.device:
 
 
 def render_context(path: str, overrides=None, device="cuda",
-                   chunk_size=1 << 16, report=None):
-    """Load and render a scene -> (image (H, W, 3) tensor, meta)."""
-    scene, meta = load_scene(path, overrides, device=resolve_device(device))
+                   chunk_size=1 << 16, report=None, trace_wide=8):
+    """Load and render a scene -> (image (H, W, 3) tensor, meta).
+
+    chunk_size: pixels per path-tracing chunk; report(done, total) after
+    each pass or iteration; trace_wide: the trace kernel's tree, 8 (BVH8)
+    or 1 (binary). The splatting methods go to splatting.render_dispatch.
+    """
+    scene, meta = load_scene(path, overrides, device=resolve_device(device),
+                             trace_wide=trace_wide)
+    method = meta.settings.get("render_method", "path_tracing")
+    if method in SPLAT_METHODS:
+        from . import splatting
+
+        return splatting.render_dispatch(scene, meta, method,
+                                         report=report), meta
     img = common.render(scene, meta, make_li(meta), chunk_size=chunk_size,
                         report=report)
     return img, meta

@@ -4,8 +4,10 @@
 Instances are flattened to world space (normals by the inverse
 transpose) and one BVH is built over the whole triangle soup: binned SAH
 with leaves of at most 32 triangles, leaf starts padded to multiples of 8
-(padding slots become zero-area triangles that never hit), collapsed to
-the 8-wide tree the trace kernel walks.
+(padding slots become zero-area triangles that never hit). The trace width
+picks the tables the trace kernel walks (goblin_tpu's GOBLIN_WIDE, here an
+argument): 8, the default, collapses the tree to the 8-wide layout;
+1 keeps the binary tree in pack_scene's per-node layout.
 """
 
 from __future__ import annotations
@@ -19,11 +21,13 @@ from ..accel.bvh import align_leaves, build_bvh
 from ..camera.camera import CameraSpec
 from ..integrators import materials as mats
 from ..lights.lights import DELTA_LIGHTS, LightsBuild, bake_lights
-from ..ops.trace import STACK, collapse8, stack_bound, tri_rows
+from ..ops.trace import (BIN_STACK, STACK, bin_depth, bin_stack_bound,
+                         bin_tables, collapse8, stack_bound, tri_rows)
 from ..shading.bsdf import MAT_LAMBERT
 from ..shading.textures import TexSpec, TextureSystem
 
 MAX_LEAF = 32
+TRACE_WIDTHS = (1, 8)
 
 
 @dataclass
@@ -49,8 +53,12 @@ class SceneMeta:
     settings: dict = field(default_factory=dict)
     n_tris: int = 0
     n_nodes: int = 0  # binary BVH nodes
-    n_wide_nodes: int = 0  # BVH8 nodes
+    # trace width: 8 walks the BVH8 tables (ops.trace.trace), 1 the binary
+    # ones (ops.trace.trace_bin)
+    trace_wide: int = 8
+    n_wide_nodes: int = 0  # BVH8 nodes (width 8)
     wide_depth: int = 0  # BVH8 nodes on the longest root-to-leaf path
+    bin_depth: int = 0  # binary inner nodes on the longest path (width 1)
     n_materials: int = 0
     n_lights: int = 0
     texture_system: TextureSystem = None
@@ -99,8 +107,12 @@ class SceneBuilder:
     def add_instance(self, rec: InstanceRecord):
         self.instances.append(rec)
 
-    def bake(self, device):
-        """-> (scene dict of tensors on device, SceneMeta)."""
+    def bake(self, device, trace_wide: int = 8):
+        """-> (scene dict of tensors on device, SceneMeta), with the trace
+        tables of width trace_wide (1 or 8)."""
+        if trace_wide not in TRACE_WIDTHS:
+            raise ValueError(f"trace_wide {trace_wide!r}: the bake supports "
+                             f"{TRACE_WIDTHS}")
         tri_v = [np.zeros((0, 3, 3), np.float32)]
         tri_n = [np.zeros((0, 3, 3), np.float32)]
         tri_uv = [np.zeros((0, 3, 2), np.float32)]
@@ -148,15 +160,27 @@ class SceneBuilder:
         V, N, UV, MAT = V[safe], N[safe], UV[safe], MAT[safe]
         V[sentinel] = 0.0
         MAT[sentinel] = 0
-        nodes_b, nodes_c, depth = collapse8(bvh.bounds, bvh.meta)
-        if stack_bound(depth) > STACK:
-            raise ValueError(
-                f"BVH8 depth {depth} needs {stack_bound(depth)} stack "
-                f"entries; the trace kernel has {STACK}"
-            )
+        if trace_wide == 8:
+            nodes_b, nodes_c, depth = collapse8(bvh.bounds, bvh.meta)
+            if stack_bound(depth) > STACK:
+                raise ValueError(
+                    f"BVH8 depth {depth} needs {stack_bound(depth)} stack "
+                    f"entries; the trace kernel has {STACK}"
+                )
+            trace_tables = {"bvh8_bounds": nodes_b, "bvh8_child": nodes_c}
+        else:
+            depth = bin_depth(bvh.meta)
+            if bin_stack_bound(depth) > BIN_STACK:
+                raise ValueError(
+                    f"binary BVH depth {depth} needs {bin_stack_bound(depth)} "
+                    f"stack entries; the trace kernel has {BIN_STACK}"
+                )
+            nodes_b, nodes_m = bin_tables(bvh.bounds, bvh.meta)
+            trace_tables = {"bin_bounds": nodes_b, "bin_meta": nodes_m}
 
         bmin = V.reshape(-1, 3).min(axis=0)
         bmax = V.reshape(-1, 3).max(axis=0)
+        world_center = 0.5 * (bmin + bmax)
         # reference BBox::getBoundingSphere: the full diagonal as radius
         world_radius = float(np.linalg.norm(bmax - bmin)) or 1.0
 
@@ -175,9 +199,8 @@ class SceneBuilder:
         def dev(a):
             return torch.as_tensor(np.ascontiguousarray(a), device=device)
 
-        scene = {
-            "bvh8_bounds": dev(nodes_b),
-            "bvh8_child": dev(nodes_c),
+        scene = {name: dev(a) for name, a in trace_tables.items()}
+        scene.update({
             "tri_rows": dev(tri_rows(soup)),
             "tri_n": dev(N),
             "tri_uv": dev(UV),
@@ -185,15 +208,21 @@ class SceneBuilder:
             "tri_light": dev(np.full(MAT.shape, -1, np.int32)),
             "mat_rows": dev(mat_rows),
             "tex_const": tex_sys.const_table(device),
-            "lights": bake_lights(self.lights, world_radius, device),
-        }
+            "lights": bake_lights(self.lights, world_center, world_radius,
+                                  device),
+            # emissive-triangle rows [v0, e1, e2, n]: none until area
+            # lights load (ROADMAP Queue 1 item 6b)
+            "em_rows": dev(np.zeros((0, 12), np.float32)),
+        })
         meta = SceneMeta(
             camera=self.camera,
             settings=dict(self.settings),
             n_tris=V.shape[0],
             n_nodes=bvh.num_nodes,
-            n_wide_nodes=nodes_b.shape[0],
-            wide_depth=depth,
+            trace_wide=trace_wide,
+            n_wide_nodes=nodes_b.shape[0] if trace_wide == 8 else 0,
+            wide_depth=depth if trace_wide == 8 else 0,
+            bin_depth=depth if trace_wide == 1 else 0,
             n_materials=len(self.materials),
             n_lights=len(self.lights.types),
             texture_system=tex_sys,

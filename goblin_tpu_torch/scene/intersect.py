@@ -1,4 +1,4 @@
-"""Wavefront scene intersection: BVH8 trace + hit refinement into a
+"""Wavefront scene intersection: BVH trace + hit refinement into a
 fragment (port of goblin_tpu/scene/intersect.py for triangle scenes).
 
     frag = {hit, t, p, ns, ng, uv, dpdu, dpdv, mat, light, eps, wo,
@@ -12,16 +12,23 @@ from __future__ import annotations
 import torch
 
 from ..core import vecmath as vm
-from ..ops.trace import TraceResult, trace
+from ..ops.trace import TraceResult, trace, trace_bin
 
 HIT_EPS_SCALE = 1e-3
 
 
 def trace_rays(scene, meta, o, d, mint, maxt, any_hit=False) -> TraceResult:
-    """Trace a wavefront through the scene's BVH8 (ops.trace.trace: the
-    CUDA kernel on the card, its plain version on the CPU)."""
-    return trace(scene, o.contiguous(), d.contiguous(), mint.contiguous(),
-                 maxt.contiguous(), any_hit=any_hit)
+    """Trace a wavefront through the scene's BVH at meta.trace_wide: 8 walks
+    the BVH8 (ops.trace.trace), 1 the binary tree (ops.trace.trace_bin);
+    each the CUDA kernel on the card and its plain version on the CPU."""
+    if meta.trace_wide == 8:
+        fn = trace
+    elif meta.trace_wide == 1:
+        fn = trace_bin
+    else:
+        raise ValueError(f"trace width {meta.trace_wide!r} has no kernel")
+    return fn(scene, o.contiguous(), d.contiguous(), mint.contiguous(),
+              maxt.contiguous(), any_hit=any_hit)
 
 
 def intersect(scene, meta, o, d, mint, maxt, dxd=None, dyd=None):

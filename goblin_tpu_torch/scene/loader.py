@@ -37,9 +37,11 @@ def _resolve_path(scene_dir, p):
     return p if os.path.isabs(p) else os.path.join(scene_dir, p)
 
 
-def load_scene(path: str, overrides: dict | None = None, device="cpu"):
+def load_scene(path: str, overrides: dict | None = None, device="cpu",
+               trace_wide: int = 8):
     """Load a scene JSON -> (scene dict of tensors on device, SceneMeta).
-    overrides patches render_setting keys (e.g. {"max_ray_depth": 5})."""
+    overrides patches render_setting keys (e.g. {"max_ray_depth": 5});
+    trace_wide picks the trace kernel's tables: 8 (BVH8) or 1 (binary)."""
     with open(path) as f:
         doc = json.load(f)
     scene_dir = os.path.dirname(os.path.abspath(path))
@@ -53,6 +55,7 @@ def load_scene(path: str, overrides: dict | None = None, device="cpu"):
         "render_method": rs.get_string("render_method", "path_tracing"),
         "sample_per_pixel": rs.get_int("sample_per_pixel", 1),
         "max_ray_depth": rs.get_int("max_ray_depth", 5),
+        "initial_radius": rs.get_float("initial_radius", -1.0),
         "seed": rs.get_int("seed", 0),
     }
 
@@ -205,4 +208,4 @@ def load_scene(path: str, overrides: dict | None = None, device="cpu"):
             mesh=geo, material=materials.get(model["material"], 0),
             to_world=get_transform(p)))
 
-    return builder.bake(device)
+    return builder.bake(device, trace_wide)

@@ -10,6 +10,8 @@ refused by the loader.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..core import vecmath as vm
@@ -25,9 +27,35 @@ BSDF_NULL = 1 << 5
 BSDF_ALL = (BSDF_REFLECTION | BSDF_TRANSMISSION | BSDF_DIFFUSE | BSDF_GLOSSY
             | BSDF_SPECULAR | BSDF_NULL)
 
+# transport mode: radiance (camera paths) or importance (light paths)
+MODE_RADIANCE = 0
+MODE_IMPORTANCE = 1
+
 # material type ids (goblin_tpu's numbering)
 MAT_LAMBERT = 0
 MAT_TRANSPARENT = 2
+
+# lobe bitmask of each material type id 0-5 (goblin_tpu's _LOBE_BY_TYPE:
+# lambert, blinn, transparent, mirror, subsurface, and mask, whose lobe is
+# its inner material's)
+_LOBES = (
+    BSDF_REFLECTION | BSDF_DIFFUSE,
+    BSDF_REFLECTION | BSDF_GLOSSY,
+    BSDF_SPECULAR | BSDF_REFLECTION | BSDF_TRANSMISSION,
+    BSDF_SPECULAR | BSDF_REFLECTION,
+    BSDF_SPECULAR | BSDF_REFLECTION,
+    0,
+)
+
+
+@functools.cache
+def _lobe_table(device) -> torch.Tensor:
+    return torch.tensor(_LOBES, dtype=torch.int32, device=device)
+
+
+def lobe_of(mtype):
+    """Per-lane lobe bitmask of material type ids (clipped to 0-5)."""
+    return _lobe_table(mtype.device)[torch.clamp(mtype, 0, 5).long()]
 
 
 def match_type(type_mask, to_match):
@@ -90,8 +118,9 @@ def _need(mat, kind):
     return kind in mat["kinds"]
 
 
-def bsdf_eval(mat, ns, wo, wi, type_mask):
-    """f(wo, wi): (R, 3). Delta lobes contribute 0 (reference behaviour)."""
+def bsdf_eval(mat, ns, wo, wi, type_mask, mode=MODE_RADIANCE):
+    """f(wo, wi): (R, 3). Delta lobes contribute 0 (reference behaviour).
+    The transport mode changes nothing here: Lambert is symmetric."""
     f = torch.zeros_like(wo)
     if _need(mat, MAT_LAMBERT):
         f = torch.where((mat["mtype"] == MAT_LAMBERT)[..., None],
@@ -107,8 +136,10 @@ def bsdf_pdf(mat, ns, wo, wi, type_mask):
     return pdf
 
 
-def bsdf_sample(mat, ns, dpdu, wo, u1, u2, u_comp, type_mask):
-    """Sample a continuation direction for every lane (radiance transport).
+def bsdf_sample(mat, ns, dpdu, wo, u1, u2, u_comp, type_mask,
+                mode=MODE_RADIANCE):
+    """Sample a continuation direction for every lane. In radiance mode a
+    refraction scales by eta^2; in importance mode it does not.
 
     Returns dict: f (R, 3) (delta lobes already divided by |cos|), wi
     (R, 3), pdf (R,) (solid angle for Lambert, discrete for delta lobes),
@@ -151,8 +182,13 @@ def bsdf_sample(mat, ns, dpdu, wo, u1, u2, u_comp, type_mask):
         wi_reflect = wi_refract = wi_lambert
         eta_ratio = torch.ones_like(cosi)
         total_internal = torch.zeros_like(cosi, dtype=torch.bool)
-    # radiance transport squeezes by eta^2 (Veach ch. 5)
-    refract_scale = (eta_ratio * eta_ratio) * (1.0 - F) / torch.clamp(
+    # radiance transport squeezes by eta^2, importance does not (Veach
+    # ch. 5, reference src/GoblinMaterial.cpp:378-387)
+    if mode == MODE_RADIANCE:
+        eta_scale = eta_ratio * eta_ratio
+    else:
+        eta_scale = torch.ones_like(eta_ratio)
+    refract_scale = eta_scale * (1.0 - F) / torch.clamp(
         vm.absdot(wi_refract, n_or), min=1e-12)
     reflect_scale = F / torch.clamp(cosi, min=1e-12)
     # pick reflect vs refract by Fresnel reflectance (reference

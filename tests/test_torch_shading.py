@@ -296,7 +296,7 @@ def _light_tables():
               cos_theta_max=float(np.cos(np.radians(10.0))),
               cos_falloff_start=float(np.cos(np.radians(5.0))))
     jlt = jl.bake_lights(jb_, [], [], np.zeros(3, np.float32), 7.5)
-    tlt = tl.bake_lights(tb_, 7.5, "cpu")
+    tlt = tl.bake_lights(tb_, np.zeros(3, np.float32), 7.5, "cpu")
     return jlt, tlt
 
 
@@ -334,8 +334,9 @@ def test_lights_match():
     ref_pdf = jl.pdf_li(jlt, jid, jnp.asarray(p), jnp.asarray(w),
                         jnp.asarray(t_hit), jnp.asarray(u),
                         jnp.full(n, -1, jnp.int32))
-    np.testing.assert_array_equal(_np(tl.pdf_li(tlt, tid, _t(t_hit))),
-                                  np.asarray(ref_pdf))
+    got_pdf = tl.pdf_li(tlt, tid, _t(p), _t(w), _t(t_hit), _t(u),
+                        torch.full((n,), -1, dtype=torch.int32))
+    np.testing.assert_array_equal(_np(got_pdf), np.asarray(ref_pdf))
 
 
 @pytest.mark.parametrize("kind", ["gaussian", "box", "triangle", "mitchell"])

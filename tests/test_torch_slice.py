@@ -92,14 +92,18 @@ def _two_triangle_scene(tmp_path):
 
 def test_port_imports_neither_jax_nor_goblin_tpu(tmp_path):
     """A fresh interpreter loads and renders a two-triangle scene on the CPU
-    with goblin_tpu_torch, and never imports jax or goblin_tpu."""
+    with goblin_tpu_torch, by path tracing and by SPPM at both trace
+    widths, and never imports jax or goblin_tpu."""
     scene = _two_triangle_scene(tmp_path)
     script = textwrap.dedent(f"""
         import sys
         from goblin_tpu_torch.render import render_context
-        img, meta = render_context({scene!r}, device="cpu")
-        assert tuple(img.shape) == (4, 4, 3), img.shape
-        assert bool(img.isfinite().all()) and float(img.mean()) > 0
+        for ovr, wide in (({{}}, 8), ({{"render_method": "sppm"}}, 8),
+                          ({{"render_method": "sppm"}}, 1)):
+            img, meta = render_context({scene!r}, ovr, device="cpu",
+                                       trace_wide=wide)
+            assert tuple(img.shape) == (4, 4, 3), img.shape
+            assert bool(img.isfinite().all()) and float(img.mean()) > 0
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "goblin_tpu" or m.startswith("goblin_tpu.")]
         assert not bad, bad
@@ -172,6 +176,6 @@ def test_bake_refuses_trees_deeper_than_the_kernel_stack(tmp_path,
 
 def test_other_integrators_refused(tmp_path):
     _, meta = tloader.load_scene(_two_triangle_scene(tmp_path),
-                                 {"render_method": "sppm"}, device="cpu")
+                                 {"render_method": "bdpt"}, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trender.make_li(meta)

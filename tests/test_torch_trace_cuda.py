@@ -1,4 +1,5 @@
-"""The CUDA BVH8 kernel against its plain PyTorch version, on the card.
+"""The CUDA trace kernels (BVH8, its stats instance, and the binary BVH)
+against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. This file imports
 neither JAX nor goblin_tpu, so it runs on a machine without them:
@@ -32,21 +33,23 @@ def cuda():
     return torch.device("cuda")
 
 
-def _scene(device, seed=3, n_tri=600, n_rays=1 << 14):
+def _scene(device, seed=3, n_tri=600, n_rays=1 << 14, max_leaf=8):
+    """Random triangles and rays, with the BVH8 and the binary tables."""
     rng = np.random.default_rng(seed)
     p0 = (rng.uniform(-1, 1, (n_tri, 3)) * 3).astype(np.float32)
     p1 = p0 + rng.normal(size=(n_tri, 3)).astype(np.float32) * 0.4
     p2 = p0 + rng.normal(size=(n_tri, 3)).astype(np.float32) * 0.4
-    tree = align_leaves(build_bvh(p0, p1, p2, max_leaf=8), align=8)
+    tree = align_leaves(build_bvh(p0, p1, p2, max_leaf=max_leaf), align=8)
     order = tree.order
     safe = np.where(order < 0, 0, order)
     soup = np.concatenate([p0[safe], p1[safe] - p0[safe], p2[safe] - p0[safe]],
                           axis=-1).astype(np.float32)
     soup[order < 0] = 0.0
     nb, nc, _ = tt.collapse8(tree.bounds, tree.meta)
-    scene = {"bvh8_bounds": torch.as_tensor(nb, device=device),
-             "bvh8_child": torch.as_tensor(nc, device=device),
-             "tri_rows": torch.as_tensor(tt.tri_rows(soup), device=device)}
+    bb, bm = tt.bin_tables(tree.bounds, tree.meta)
+    tables = {"bvh8_bounds": nb, "bvh8_child": nc, "bin_bounds": bb,
+              "bin_meta": bm, "tri_rows": tt.tri_rows(soup)}
+    scene = {k: torch.as_tensor(v, device=device) for k, v in tables.items()}
     o = (rng.uniform(-1, 1, (n_rays, 3)) * 6).astype(np.float32)
     d = rng.normal(size=(n_rays, 3)).astype(np.float32) * 1.5 - o
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
@@ -63,7 +66,8 @@ def test_kernel_matches_plain(cuda, any_hit):
     tt.reset_launches()
     got = tt.trace(scene, *rays, any_hit=any_hit)
     torch.cuda.synchronize()
-    assert tt.launches == 1
+    assert tt.launches == {"trace_bvh8": 1, "trace_bvh8_stats": 0,
+                           "trace_bvh2": 0}
     ref = tt.trace_plain(scene, *rays, any_hit=any_hit)
     h = ref.hit.cpu().numpy()
     assert h.sum() > 1000
@@ -72,6 +76,43 @@ def test_kernel_matches_plain(cuda, any_hit):
         np.testing.assert_allclose(got.t.cpu().numpy(), ref.t.cpu().numpy(),
                                    rtol=1e-6)
         assert (got.tri == ref.tri).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("max_leaf", [8, 32])
+def test_bin_kernel_matches_plain(cuda, any_hit, max_leaf):
+    scene, rays = _scene(cuda, max_leaf=max_leaf)
+    tt.reset_launches()
+    got = tt.trace_bin(scene, *rays, any_hit=any_hit)
+    torch.cuda.synchronize()
+    assert tt.launches["trace_bvh2"] == 1 and tt.launches["trace_bvh8"] == 0
+    ref = tt.trace_bin_plain(scene, *rays, any_hit=any_hit)
+    h = ref.hit.cpu().numpy()
+    assert h.sum() > 1000
+    np.testing.assert_array_equal(got.hit.cpu().numpy(), h)
+    if not any_hit:
+        np.testing.assert_allclose(got.t.cpu().numpy(), ref.t.cpu().numpy(),
+                                   rtol=1e-6)
+        assert (got.tri == ref.tri).float().mean().item() >= 0.99
+        # and the BVH8 kernel on the same rays
+        k1 = tt.trace(scene, *rays)
+        assert torch.equal(k1.hit, got.hit)
+        assert (k1.tri == got.tri).float().mean().item() >= 0.99
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_stats_kernel_matches_plain(cuda, any_hit):
+    scene, rays = _scene(cuda)
+    tt.reset_launches()
+    got, counts = tt.trace(scene, *rays, any_hit=any_hit, stats=True)
+    torch.cuda.synchronize()
+    assert tt.launches["trace_bvh8_stats"] == 1
+    assert tt.launches["trace_bvh8"] == 0
+    ref, ref_counts = tt.trace_plain(scene, *rays, any_hit=any_hit,
+                                     stats=True)
+    assert torch.equal(counts, ref_counts)
+    assert torch.equal(got.hit, ref.hit)
+    assert int(counts[:, 1].sum()) > 0
 
 
 def test_kernel_checks_inputs(cuda):
