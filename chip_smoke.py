@@ -6,7 +6,8 @@
 Phases, each printed on its own lines, and any failure exits non-zero:
   1. card: nvidia-smi's name and power limit, torch's device name;
   2. build: csrc/trace_bvh8.cu and csrc/trace_bvh2.cu, one nvcc each,
-     started together (seconds, ptxas report);
+     started together (seconds; ptxas's registers, shared memory and stack
+     frame; each kernel's block size, stack levels and shared-memory budget);
   3. kernel vs plain: the BVH8 kernel against its plain PyTorch version on
      the full-frame bunny primary, bounce-1 continuation and bounce-1
      shadow wavefronts, traced in the main path's 65,536-ray chunks, in
@@ -28,10 +29,18 @@ Phases, each printed on its own lines, and any failure exits non-zero:
      0.01) with sample_per_pixel cut from 100 to 4 iterations, through
      render_context at trace width 1 and at 8: finite non-black images
      that agree, and exactly 1 + 2 x 20 + 6 x 20 = 161 launches per
-     iteration of the width's kernel and none of the other;
+     iteration of the width's kernel and none of the other; the widths
+     render in turns (1, 8, 8, 1), so neither always runs first;
   9. a 48 x 36, 2-iteration, depth-5 SPPM render at width 1 on the card
      against the CPU's.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
+Each kernel's row carries its time (CUDA events over launches queued behind
+a spinning kernel, so the host's launch rate stays out of it), its plain
+version's time, and its bound: the larger of the bytes it must move over
+3.35 TB/s and the operations this run's rays need (from the visit census)
+over 67 TFLOP/s. The census is exact: a box test for every child a visited
+node holds, a test for every triangle of a visited leaf, counted by each
+kernel's plain version on the same rays. No PyTorch call traverses a BVH, so library_ms is null.
 """
 
 import dataclasses
@@ -49,6 +58,16 @@ SETTINGS = {"render_method": "path_tracing", "max_ray_depth": 5,
 CHUNK = 1 << 16
 EXPECTED_LAUNCHES = 8 * 3 * 4
 KERNEL_REPS = 20
+# the spinning kernel that timed launches queue behind: about 10 ms
+SPIN_CYCLES = 20_000_000
+# NVIDIA H100 SXM: device memory rate and float32 rate outside tensor cores
+PEAK_BYTES_S = 3.35e12
+PEAK_FLOP_S = 67e12
+# float operations of one slab test and one Moller-Trumbore test, as the
+# kernels write them (csrc/trace_common.cuh)
+SLAB_FLOP = 25
+TRI_FLOP = 53
+NO_LIBRARY = "none: no PyTorch call traverses a BVH"
 # phase 8: bunny.json's own settings but 4 of its 100 iterations
 SPPM_ITERATIONS = 4
 
@@ -80,19 +99,47 @@ def chunked(fn, scene, rays, any_hit):
 
 
 def time_ms(fn, reps):
-    """Mean ms of fn() over reps calls, CUDA events around the batch."""
+    """Mean ms of fn() over reps calls, CUDA events around the batch. A
+    batch of more than one call queues behind a spinning kernel, so the
+    device runs the calls back to back however slowly the host issues
+    them."""
     import torch
 
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if reps > 1:
+        torch.cuda._sleep(SPIN_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(n_rays, table_bytes, box_tests, tri_tests, ms, out_bytes=17):
+    """The least time the card could take for a trace: the larger of its
+    bytes (each ray 32 B in and out_bytes out, the tables once) over the
+    memory rate and its operations (this run's box and triangle tests) over
+    the float32 rate. Returns the row's bound keys."""
+    n_bytes = n_rays * (32 + out_bytes) + table_bytes
+    flop = box_tests * SLAB_FLOP + tri_tests * TRI_FLOP
+    by_bytes, by_ops = n_bytes / PEAK_BYTES_S * 1e3, flop / PEAK_FLOP_S * 1e3
+    bound_ms = max(by_bytes, by_ops)
+    return {"bound_ms": bound_ms,
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bound_counts": {"rays": n_rays, "bytes": n_bytes,
+                             "table_bytes": table_bytes,
+                             "box_tests": box_tests, "tri_tests": tri_tests,
+                             "flop": flop},
+            "roofline_share": bound_ms / ms,
+            "library_ms": None, "library": NO_LIBRARY}
+
+
+def table_bytes(scene, names):
+    return sum(scene[k].numel() * scene[k].element_size() for k in names)
 
 
 def wavefronts(scene, meta):
@@ -178,6 +225,9 @@ def compare_kernel(scene, meta):
             ) / len(range(0, n, CHUNK))
             print(line + f" | per 65,536-ray chunk: kernel {ms[key]:.4f} ms,"
                          f" plain {plain_ms[key]:.2f} ms", flush=True)
+    print(f"  trace_bvh8 per 65,536-ray chunk: "
+          f"{tt.launch_blocks('trace_bvh8', CHUNK)} persistent blocks, 8 "
+          "lanes to a ray, no nodes staged", flush=True)
     return {
         "name": "trace_bvh8",
         "route": "cuda",
@@ -265,7 +315,7 @@ def main_path():
           f"{n_pix * 8 / steady / 1e6:.3f} dispatched Mrays/s", flush=True)
     print(f"  image mean {img.mean():.6f} max {img.max():.4f}; EXR "
           f"{exr_bytes} bytes; kernel launches {launches}", flush=True)
-    return launches["trace_bvh8"]
+    return launches
 
 
 def photon_wavefront(scene, seed):
@@ -371,6 +421,18 @@ def compare_bin_kernel(scene8, meta8, scene1):
                   f"{t['plain_chunk']:.2f} / {t['plain_full']:.2f} ms; K1 "
                   f"{k1_ms[key]['full']:.4f} ms per {n}-ray launch, plain "
                   f"{k1_ms[key]['plain_full']:.2f} ms", flush=True)
+    primary = [r.contiguous() for r in fronts["primary"]]
+    _, counts = tt.trace_bin_plain(scene1, *primary, census=True)
+    census = [int(v) for v in counts.sum(dim=0)]
+    n = primary[0].shape[0]
+    n_nodes = scene1["bin_meta"].shape[0]
+    n_staged = tt.bin_staged_nodes(n_nodes, primary[0].device)
+    print(f"  trace_bvh2 per {n}-ray launch: "
+          f"{tt.launch_blocks('trace_bvh2', n, n_staged)} persistent blocks, "
+          f"{n_staged} of {n_nodes} nodes staged in shared memory; "
+          f"primary census (plain version): {census[0] / n:.3f} inner visits, "
+          f"{census[1] / n:.3f} leaf visits, {census[2] / n:.3f} triangles "
+          "tested per ray", flush=True)
     row = {
         "name": "trace_bvh2",
         "route": "cuda",
@@ -383,6 +445,8 @@ def compare_bin_kernel(scene8, meta8, scene1):
         "ms_chunk": ms["primary/closest"]["chunk"],
         "plain_ms_chunk": ms["primary/closest"]["plain_chunk"],
     }
+    row.update(bound(n, table_bytes(scene1, tt._BIN_TABLES), 2 * census[0],
+                     census[2], row["ms"]))
     return row, k1_ms
 
 
@@ -390,7 +454,9 @@ def compare_stats(scene8, meta8):
     """Phase 7: the stats instance's visit census of the primary and
     continuation wavefronts (the use goblin_tpu's tools/trace_profile.py
     makes of it), then its counts against trace_plain's. Returns (row,
-    the census's launches)."""
+    the census's launches, the primary wavefront's sums of inner visits,
+    leaf visits, child boxes tested and triangles tested, from the plain
+    version's census of the same walk)."""
     import torch
 
     from goblin_tpu_torch.ops import trace as tt
@@ -431,6 +497,18 @@ def compare_stats(scene8, meta8):
               f"kernel {ms[name]:.4f} ms per {counts.shape[0]}-ray launch "
               f"(production instance {prod_ms:.4f} ms), plain "
               f"{plain_ms[name]:.2f} ms", flush=True)
+    # the work K1's walk needs on the primary frame: a box test for every
+    # slot of a visited node that holds a child, a test for every triangle
+    # of a visited leaf
+    _, work = tt.trace_plain(scene8, *fronts["primary"], census=True)
+    check(torch.equal(work[:, :2], census["primary"][1][:, :2]),
+          "primary: the census's visits differ from the stats counts")
+    work = [int(v) for v in work.sum(dim=0)]
+    n = fronts["primary"][0].shape[0]
+    print(f"  primary census (plain version): {work[2] / work[0]:.3f} child "
+          f"boxes tested per inner visit, {work[3] / work[1]:.3f} triangles "
+          f"per leaf visit; {work[2] / n:.3f} boxes and {work[3] / n:.3f} "
+          "triangles per ray", flush=True)
     return {
         "name": "trace_bvh8_stats",
         "route": "cuda",
@@ -440,12 +518,12 @@ def compare_stats(scene8, meta8):
         "max_abs_err": float(worst),
         "ms": ms["primary"],
         "plain_ms": plain_ms["primary"],
-    }, launches
+    }, launches, work
 
 
 def sppm_main_path():
     """Phase 8: bunny.json as shipped (SPPM) through render_context at
-    trace width 1 and 8. Returns {width: launches}."""
+    trace width 1 and 8, in turns (1, 8, 8, 1). Returns {width: launches}."""
     import numpy as np
     import torch
 
@@ -472,10 +550,10 @@ def sppm_main_path():
 
         return timed
 
-    images, counts = {}, {}
+    images, counts, mean_s = {}, {}, {1: [], 8: []}
     sppm.make_ray_pass = timed_make_ray_pass
     try:
-        for wide in (1, 8):
+        for turn, wide in enumerate((1, 8, 8, 1)):
             marks, ray_s[:] = [], []
 
             def report(done, total):
@@ -500,7 +578,9 @@ def sppm_main_path():
             want = {"trace_bvh8": 0, "trace_bvh8_stats": 0, "trace_bvh2": 0}
             want[mine] = per_it * SPPM_ITERATIONS
             its = np.diff([t0] + marks)
-            print(f"  width {wide}: {spec.x_res}x{spec.y_res} depth {max_len} "
+            mean_s[wide].append(float(np.mean(its)))
+            print(f"  turn {turn + 1}, width {wide}: {spec.x_res}x{spec.y_res} "
+                  f"depth {max_len} "
                   f"initial radius {meta.settings['initial_radius']}; seconds "
                   f"per iteration {' '.join(f'{s:.3f}' for s in its)} (ray "
                   f"pass {' '.join(f'{s:.3f}' for s in ray_s)}, photon pass "
@@ -518,6 +598,10 @@ def sppm_main_path():
             images[wide], counts[wide] = img, launches
     finally:
         sppm.make_ray_pass = make_ray_pass
+    print(f"  mean seconds per iteration by turn: width 1 "
+          f"{' '.join(f'{v:.3f}' for v in mean_s[1])} (turns 1 and 4), "
+          f"width 8 {' '.join(f'{v:.3f}' for v in mean_s[8])} (turns 2 and "
+          "3)", flush=True)
     a, b = images[1], images[8]
     close = (np.abs(a - b) <= 1e-4 + 1e-3 * np.abs(b)).all(axis=-1)
     rel_mean = abs(a.mean() - b.mean()) / b.mean()
@@ -582,6 +666,13 @@ def run():
                     or "stack frame" in line or "Compiling" in line):
                 print(f"  {name}: {line.strip()}")
 
+    cfg = tt.bin_kernel_config(torch.cuda.current_device())
+    print(f"  trace_bvh8: {tt.WIDE_LEVELS} stack levels a ray, no nodes "
+          f"staged; trace_bvh2: blocks of {cfg.threads} threads, {cfg.stack} "
+          f"stack entries a ray, {cfg.fixed_bytes} B of shared memory a "
+          f"block beside {cfg.node_bytes} B a staged node, budget "
+          f"{cfg.budget} B a block", flush=True)
+
     print("[3] kernel vs plain, bunny pass-0 wavefronts:", flush=True)
     scene, meta = load_scene(BUNNY, SETTINGS, device="cuda")
     row = compare_kernel(scene, meta)
@@ -599,9 +690,11 @@ def run():
     check(torch.equal(scene1["tri_rows"], scene8["tri_rows"]),
           "width-1 and width-8 bakes hold different triangles")
     k2_row, k1_full_ms = compare_bin_kernel(scene8, meta8, scene1)
+    k1_table_bytes = table_bytes(scene8, tt._BVH8_TABLES)
+    n_frame = meta8.camera.film.x_res * meta8.camera.film.y_res
 
     print("[7] BVH8 stats instance vs plain counts:", flush=True)
-    stats_row, stats_launches = compare_stats(scene8, meta8)
+    stats_row, stats_launches, k1_census = compare_stats(scene8, meta8)
     del scene8, scene1
 
     print("[8] SPPM, bunny.json as shipped, through render_context:",
@@ -618,12 +711,32 @@ def run():
     row.update(ms_chunk=row["ms"], plain_ms_chunk=row["plain_ms"],
                ms=k1_full_ms["primary/closest"]["full"],
                plain_ms=k1_full_ms["primary/closest"]["plain_full"])
-    row["launches"] = sppm_counts[8]["trace_bvh8"]
-    row["launches_path_tracing"] = pt_launches
-    k2_row["launches"] = sppm_counts[1]["trace_bvh2"]
+    # K1's work on the primary frame, from phase 7's census. A chunk's bound
+    # is that of the frame's chunks on average, as its time is.
+    n_chunks, rest = divmod(n_frame, CHUNK)
+    check(rest == 0, f"the frame is not whole chunks of {CHUNK}")
+    row.update(bound(n_frame, k1_table_bytes, k1_census[2], k1_census[3],
+                     row["ms"]))
+    chunk = bound(CHUNK, k1_table_bytes, k1_census[2] // n_chunks,
+                  k1_census[3] // n_chunks, row["ms_chunk"])
+    row.update(bound_ms_chunk=chunk["bound_ms"],
+               roofline_share_chunk=chunk["roofline_share"])
+    # the stats instance also writes 12 bytes a ray
+    stats_row.update(bound(n_frame, k1_table_bytes, k1_census[2],
+                           k1_census[3], stats_row["ms"], out_bytes=17 + 12))
+    # launches: the SPPM render's at the kernel's own width; path tracing is
+    # driven at width 8
+    spp = SETTINGS["sample_per_pixel"]
+    for r, width in ((row, 8), (k2_row, 1), (stats_row, 8)):
+        name = r["name"]
+        r["launches"] = sppm_counts[width][name]
+        r["launches_per_pt_pass"] = pt_launches[name] // spp
+        r["launches_per_sppm_iteration"] = (sppm_counts[width][name]
+                                            // SPPM_ITERATIONS)
+    row["launches_path_tracing"] = pt_launches["trace_bvh8"]
+    # no render path runs the stats instance: its row counts phase 7's census
     stats_row["launches"] = stats_launches
-    stats_row["launches_counted_in"] = ("phase 7's visit census; no render "
-                                        "path runs it")
+    stats_row["launches_counted_in"] = "phase 7's visit census"
     print(smi)
     print(json.dumps({"kernels": [row, k2_row, stats_row]}))
     print(json.dumps({"ok": True, "device": {

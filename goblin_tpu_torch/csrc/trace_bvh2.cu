@@ -4,21 +4,55 @@
 // (entry trace_packets), the trace width-1 path. It computes the same
 // function: for each ray (o, d, mint, maxt) walk the binary skip-link BVH
 // in pack_scene's per-node layout, test both children's boxes at the
-// parent, push the hit ones with the nearer child last (ties go to the
-// left child), skip a popped entry whose entry distance exceeds the ray's
-// best t, and test leaf triangles with Moller-Trumbore (edge eps 1e-7,
+// parent, visit the nearer child first (ties go to the left child) and the
+// farther later, skip an entry whose entry distance exceeds the ray's best
+// t by then, and test leaf triangles with Moller-Trumbore (edge eps 1e-7,
 // accept mint <= t <= t_best, so the last of equal-t triangles wins). The
-// root is pushed without a box test. The TPU kernel walks 1024-ray packets
-// on one shared stack; here each thread walks its own ray on its own stack.
+// root is visited without a box test. The TPU kernel walks 1024-ray packets
+// on one shared stack; here every lane walks its own ray, depth first.
 //
-// What bounds it on the card: the chain of dependent node fetches (pop ->
-// load meta -> two box tests -> push) and warp divergence, not bytes or
-// FLOPs: a binary walk makes about four times as many visits as the 8-wide
-// one for the same rays, each a short dependent step. The design answers
-// with one thread per ray, a node in two float4 of bounds plus one int4
-// of meta (one 16-byte load resolves both children, the right child being
-// baked into the inner node's first field), and read-only __restrict__
-// loads. A first, plain version: no shared-memory staging.
+// What bounds it on this card (NVIDIA H100, bunny: 3,501 nodes of 48 B,
+// 45,224 triangle rows of 48 B): not bytes and not arithmetic. A 196,608-ray
+// primary wavefront must move 12.0 MB (3.6 us at 3.35 TB/s) and needs 3.9 M
+// box tests and 5.1 M triangle tests (9.91 inner visits, 1.55 leaf visits
+// and 25.9 triangles a ray), 0.37 GFLOP or 5.5 us at 67 TFLOP/s. But a
+// binary walk is a long chain of short dependent steps (pop -> meta -> two
+// box tests -> push; triangle load -> test -> accept), a warp lasts as long
+// as its longest ray, and 16 warps to a multiprocessor hide only part of
+// that. The time is latency times the rounds of warps. What the design does
+// about it:
+//
+// - Persistent blocks: one block of 512 threads to a multiprocessor, each
+//   warp drawing 32 consecutive rays at a time from a counter in device
+//   memory until the rays run out.
+// - The node table in shared memory, copied by TMA: at block start warp 0
+//   issues bulk asynchronous copies (4 KB each) of the first n_staged nodes'
+//   bounds and meta rows, and a warp waits on their mbarrier only after it
+//   has loaded its first rays. A visit of node j < n_staged reads shared
+//   memory, any other device memory, so a tree of any size runs; bunny's 168
+//   KB fit whole. The rows keep their device layout: 32 lanes on 32 different
+//   nodes read a 16-byte meta row each from 8 distinct bank groups (no
+//   conflict beyond the 4 wavefronts 512 bytes take) and two 16-byte halves
+//   of a 32-byte bounds row, which fall on 4 of the 8 bank groups (2-way
+//   conflicts at worst); lanes on the same node share one broadcast.
+// - The nearer child stays in registers instead of going through the stack,
+//   so the stack holds only far children: at most one (node, entry distance)
+//   pair per level. It stays in local memory (ptxas: a 256-byte frame): 32
+//   levels x 8 bytes x 512 threads would take 128 KB of the shared memory
+//   the nodes use, and a 16-level stack in shared memory with 256 threads a
+//   block was measured faster on the primary rays and slower on the
+//   continuation (PERF.md).
+// - Inner nodes and leaves in separate phases: each lane walks inner nodes
+//   until a leaf is pending, then the warp turns to the leaves, so its lanes
+//   run the same arm together. While at most 16 lanes have a leaf pending
+//   the warp takes them one after another with a triangle to a lane (a leaf
+//   holds at most 32), one test deep instead of up to 32 in a row, and a
+//   reduction keeps the sequential accept rule; above 16 every lane tests
+//   its own leaf with the loads of 4 triangles issued ahead of their tests.
+//   Eight lanes to a ray, the BVH8 kernel's form, was measured here too:
+//   faster per 65,536-ray chunk, but slower per 32,768-photon launch and
+//   equal per frame, the two shapes a width-1 render launches, so the
+//   lane-to-a-ray walk stays (PERF.md).
 //
 // Layout (built on the host, see ops/trace.py::bin_tables):
 //   bounds (N, 8) f32: bmin.xyz, bmax.xyz, 0, 0
@@ -30,166 +64,236 @@
 // the tree depth so it cannot happen for a baked scene).
 //
 // Built with --fmad=false so products and sums round as in eager PyTorch,
-// which keeps the kernel and its plain version (trace_bin_plain) bit-close.
+// which keeps the kernel and its plain version (trace_bin_plain) bit-equal.
 
-#include <cuda_runtime.h>
+#include "trace_common.cuh"
 
 namespace {
 
+using namespace goblin;
+
 constexpr int kStack = 32;  // ops/trace.py BIN_STACK
-constexpr float kBigT = 3.0e38f;
-constexpr float kTiny = 1e-30f;
-constexpr float kTriEps = 1e-7f;
-constexpr int kThreads = 128;
+constexpr int kThreads = 512;
+// blocks that share a multiprocessor (and its shared memory)
+constexpr int kBlocksPerSM = 1;
+constexpr int kBoundsBytes = 32;  // a node's two float4 of bounds
+constexpr int kMetaBytes = 16;    // and its int4 of meta
 
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, inx, iny, inz, mint;
-};
-
-// entry distance of node j's box, or kBigT where the ray misses it within
-// [mint, t_best]
-__device__ __forceinline__ float box_entry(const float4* __restrict__ bounds,
-                                           int j, const Ray& r,
-                                           float t_best) {
-  const float4 a = bounds[2 * j], b = bounds[2 * j + 1];
-  const float t0x = (a.x - r.ox) * r.inx, t1x = (a.w - r.ox) * r.inx;
-  const float t0y = (a.y - r.oy) * r.iny, t1y = (b.x - r.oy) * r.iny;
-  const float t0z = (a.z - r.oz) * r.inz, t1z = (b.y - r.oz) * r.inz;
-  float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
-  float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
-  tn = fmaxf(tn, r.mint);
-  tf = fminf(tf, t_best);
-  return tn <= tf ? tn : kBigT;
+__host__ __device__ constexpr int smem_bytes(int n_staged) {
+  return kSmemHeader + n_staged * (kBoundsBytes + kMetaBytes);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// entry distance of a box whose two float4 start at nb, or kBigT where the
+// ray misses it within [mint, t_best]
+__device__ __forceinline__ float box_entry(const float4* nb, const Ray& r,
+                                           float t_best) {
+  const float4 a = nb[0], b = nb[1];
+  float tn;
+  return slab_test(r, t_best, a.x, a.y, a.z, a.w, b.x, b.y, tn) ? tn : kBigT;
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 trace_bvh2_kernel(const float4* __restrict__ bounds,
                   const int4* __restrict__ meta,
                   const float4* __restrict__ tris,
                   const float* __restrict__ o, const float* __restrict__ d,
                   const float* __restrict__ mint_in,
                   const float* __restrict__ maxt_in, int n_rays, int any_hit,
-                  bool* __restrict__ hit_out, float* __restrict__ t_out,
-                  int* __restrict__ tri_out, float* __restrict__ b1_out,
-                  float* __restrict__ b2_out, int* __restrict__ overflow) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  Ray r;
-  r.ox = o[3 * i]; r.oy = o[3 * i + 1]; r.oz = o[3 * i + 2];
-  r.dx = d[3 * i]; r.dy = d[3 * i + 1]; r.dz = d[3 * i + 2];
-  r.mint = mint_in[i];
-  r.inx = 1.0f / (r.dx == 0.0f ? kTiny : r.dx);
-  r.iny = 1.0f / (r.dy == 0.0f ? kTiny : r.dy);
-  r.inz = 1.0f / (r.dz == 0.0f ? kTiny : r.dz);
+                  int n_staged, bool* __restrict__ hit_out,
+                  float* __restrict__ t_out, int* __restrict__ tri_out,
+                  float* __restrict__ b1_out, float* __restrict__ b2_out,
+                  int* __restrict__ overflow, int* __restrict__ counter) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
+  const float4* s_bounds = reinterpret_cast<const float4*>(smem + kSmemHeader);
+  const int4* s_meta = reinterpret_cast<const int4*>(
+      smem + kSmemHeader + n_staged * kBoundsBytes);
+  uint2 stack[kStack];  // (node, bits of its entry distance)
 
-  float t_best = fminf(maxt_in[i], kBigT);
-  int tri_best = -1;
-  float b1_best = 0.0f, b2_best = 0.0f;
+  // stage the first n_staged nodes: warp 0 issues the bulk copies, and
+  // no warp waits for them until its first rays are loaded
+  if (threadIdx.x == 0) mbar_init(bar, 1);
+  __syncthreads();
+  if (threadIdx.x < 32 && n_staged > 0) {
+    if (threadIdx.x == 0)
+      mbar_expect_tx(bar, n_staged * (kBoundsBytes + kMetaBytes));
+    __syncwarp();
+    stage_bytes(smem + kSmemHeader, bounds, n_staged * kBoundsBytes, bar);
+    stage_bytes(smem + kSmemHeader + n_staged * kBoundsBytes, meta,
+                n_staged * kMetaBytes, bar);
+  }
+  bool staged = n_staged == 0;
 
-  int stack[kStack];
-  float stack_tn[kStack];
-  stack[0] = 0;  // the root, never culled
-  stack_tn[0] = -kBigT;
-  int sp = 1;
+  // Each lane walks one ray at a time: `i` is its ray (-1: none) and
+  // `have` says that the walk has an entry to visit: a node and the
+  // distance `tn` at which the ray enters its box. The stack holds the far
+  // children still to visit. The root is never culled.
+  int i = -1;
+  bool have = false;
+  Ray r = {};
+  Best best = {0.0f, -1, 0.0f, 0.0f};
+  int node = 0, sp = 0;
+  float tn = -kBigT;
+  int first = 0, count = 0;  // the pending leaf
 
-  bool done = false;
-  while (sp > 0 && !done) {
+  auto pop = [&]() -> bool {
+    if (sp == 0) return false;
     --sp;
-    const int node = stack[sp];
-    if (stack_tn[sp] > t_best) continue;  // entered beyond the best hit
-    const int4 m = meta[node];
-    if (m.y == 0) {
-      // inner node: box-test both children here, push the nearer last
-      const int left = node + 1, right = m.x;
-      const float min_l = box_entry(bounds, left, r, t_best);
-      const float min_r = box_entry(bounds, right, r, t_best);
-      const bool l_nearer = min_l <= min_r;
-      const int near_node = l_nearer ? left : right;
-      const int far_node = l_nearer ? right : left;
-      const float near_tn = fminf(min_l, min_r);
-      const float far_tn = fmaxf(min_l, min_r);
-      const int n_push = (near_tn < kBigT) + (far_tn < kBigT);
-      if (sp + n_push > kStack) {
-        *overflow = 1;
+    const uint2 v = stack[sp];
+    node = static_cast<int>(v.x);
+    tn = __uint_as_float(v.y);
+    return true;
+  };
+
+  auto entry_of = [&](int j) -> float {
+    if (j < n_staged) return box_entry(s_bounds + 2 * j, r, best.t);
+    return box_entry(bounds + 2 * j, r, best.t);
+  };
+
+  for (;;) {
+    // a lane whose ray has ended writes it out
+    if (!have && i >= 0) {
+      const bool hit = best.tri >= 0;
+      hit_out[i] = hit;
+      t_out[i] = hit ? best.t : kBigT;
+      tri_out[i] = best.tri;
+      b1_out[i] = best.b1;
+      b2_out[i] = best.b2;
+      i = -1;
+    }
+    // a warp whose rays have all ended draws the next 32
+    if (!__any_sync(kFullMask, have)) {
+      const int base = next_batch(counter);
+      if (base >= n_rays) {
+        // no block ends while its bulk copies are in flight
+        if (!staged) mbar_wait(bar, 0);
         break;
       }
+      if (base + (threadIdx.x & 31) < n_rays) {
+        i = base + (threadIdx.x & 31);
+        r = load_ray(o, d, mint_in, i);
+        best.t = fminf(maxt_in[i], kBigT);
+        best.tri = -1;
+        best.b1 = best.b2 = 0.0f;
+        node = 0;
+        tn = -kBigT;
+        sp = 0;
+        have = true;
+      }
+      continue;
+    }
+    if (!staged) {
+      mbar_wait(bar, 0);
+      staged = true;
+    }
+
+    // inner phase: walk inner nodes until a leaf is pending or the ray ends
+    while (have) {
+      if (tn > best.t) {  // entered beyond the best hit
+        have = pop();
+        continue;
+      }
+      int4 m;
+      if (node < n_staged)
+        m = s_meta[node];
+      else
+        m = meta[node];
+      if (m.y != 0) {
+        first = m.x;
+        count = m.y;
+        break;
+      }
+      // inner node: box-test both children here, visit the nearer first
+      // (ties go to the left child) and stack the farther
+      const int left = node + 1, right = m.x;
+      const float min_l = entry_of(left), min_r = entry_of(right);
+      const bool l_nearer = min_l <= min_r;
+      const float near_tn = fminf(min_l, min_r);
+      const float far_tn = fmaxf(min_l, min_r);
       if (far_tn < kBigT) {
-        stack[sp] = far_node;
-        stack_tn[sp] = far_tn;
+        if (sp == kStack) {
+          *overflow = 1;
+          have = false;
+          break;
+        }
+        stack[sp] = make_uint2(
+            static_cast<uint32_t>(l_nearer ? right : left),
+            __float_as_uint(far_tn));
         ++sp;
       }
       if (near_tn < kBigT) {
-        stack[sp] = near_node;
-        stack_tn[sp] = near_tn;
-        ++sp;
-      }
-    } else {
-      // leaf: test exactly `count` triangles from `first`
-      const int first = m.x, count = m.y;
-      for (int k = 0; k < count; ++k) {
-        const float4* tr = tris + 3 * (first + k);
-        const float4 ta = tr[0], tb = tr[1], tc = tr[2];
-        const float v0x = ta.x, v0y = ta.y, v0z = ta.z;
-        const float e1x = ta.w, e1y = tb.x, e1z = tb.y;
-        const float e2x = tb.z, e2y = tb.w, e2z = tc.x;
-        const float s1x = r.dy * e2z - r.dz * e2y;
-        const float s1y = r.dz * e2x - r.dx * e2z;
-        const float s1z = r.dx * e2y - r.dy * e2x;
-        const float div = s1x * e1x + s1y * e1y + s1z * e1z;
-        const float inv = 1.0f / (div == 0.0f ? kTiny : div);
-        const float sx = r.ox - v0x, sy = r.oy - v0y, sz = r.oz - v0z;
-        const float b1 = (sx * s1x + sy * s1y + sz * s1z) * inv;
-        const float s2x = sy * e1z - sz * e1y;
-        const float s2y = sz * e1x - sx * e1z;
-        const float s2z = sx * e1y - sy * e1x;
-        const float b2 = (r.dx * s2x + r.dy * s2y + r.dz * s2z) * inv;
-        const float t = (e2x * s2x + e2y * s2y + e2z * s2z) * inv;
-        const bool ok = div != 0.0f && b1 + kTriEps >= 0.0f &&
-                        b1 - kTriEps <= 1.0f && b2 + kTriEps >= 0.0f &&
-                        b1 + b2 - kTriEps <= 1.0f && t >= r.mint &&
-                        t <= t_best;
-        if (ok) {
-          t_best = t;
-          tri_best = first + k;
-          b1_best = b1;
-          b2_best = b2;
-          if (any_hit) {
-            done = true;
-            break;
-          }
-        }
+        node = l_nearer ? left : right;
+        tn = near_tn;
+      } else {
+        have = pop();
       }
     }
+    // leaf phase: exactly `count` triangles from `first` for each lane
+    // that has one pending
+    const unsigned pending = __ballot_sync(kFullMask, have);
+    if (pending == 0) continue;
+    bool done;
+    if (__popc(pending) <= kCoopMax)
+      done = leaf_tests_warp(tris, pending, first, count, r, any_hit, best);
+    else
+      done = have && leaf_tests(tris, first, count, r, any_hit, best);
+    if (have) have = !done && pop();
   }
-  const bool hit = tri_best >= 0;
-  hit_out[i] = hit;
-  t_out[i] = hit ? t_best : kBigT;
-  tri_out[i] = tri_best;
-  b1_out[i] = b1_best;
-  b2_out[i] = b2_best;
+}
+
+// Blocks for a launch of n_rays rays with n_staged nodes staged: those that
+// stay resident at once, or fewer where the rays do not fill them.
+cudaError_t plan_blocks(int n_rays, int n_staged, int* blocks) {
+  static LaunchPlan<decltype(&trace_bvh2_kernel)> plan;
+  const cudaError_t err = plan.blocks(&trace_bvh2_kernel, kThreads,
+                                      smem_bytes(n_staged), blocks);
+  if (err != cudaSuccess) return err;
+  const int needed = (n_rays + kThreads - 1) / kThreads;
+  if (needed < *blocks) *blocks = needed;
+  return cudaSuccess;
 }
 
 }  // namespace
 
 // Plain C entry for ctypes. Launches on `stream`, does not synchronise,
-// and returns cudaGetLastError() (0 on success).
+// and returns cudaGetLastError() (0 on success). n_staged nodes are staged
+// in shared memory (ops/trace.py::staged_nodes), and overflow and counter
+// point at zeroed int32 words.
 extern "C" int goblin_trace_bvh2(const void* bounds, const void* meta,
                                  const void* tris, const void* o,
                                  const void* d, const void* mint,
                                  const void* maxt, int n_rays, int any_hit,
-                                 void* hit, void* t, void* tri, void* b1,
-                                 void* b2, void* overflow, void* stream) {
-  if (n_rays > 0) {
-    const int blocks = (n_rays + kThreads - 1) / kThreads;
-    trace_bvh2_kernel<<<blocks, kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float4*>(bounds), static_cast<const int4*>(meta),
-        static_cast<const float4*>(tris), static_cast<const float*>(o),
-        static_cast<const float*>(d), static_cast<const float*>(mint),
-        static_cast<const float*>(maxt), n_rays, any_hit,
-        static_cast<bool*>(hit), static_cast<float*>(t),
-        static_cast<int*>(tri), static_cast<float*>(b1),
-        static_cast<float*>(b2), static_cast<int*>(overflow));
-  }
+                                 int n_staged, void* hit, void* t, void* tri,
+                                 void* b1, void* b2, void* overflow,
+                                 void* counter, void* stream) {
+  if (n_rays <= 0) return static_cast<int>(cudaGetLastError());
+  int blocks = 0;
+  const cudaError_t err = plan_blocks(n_rays, n_staged, &blocks);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  trace_bvh2_kernel<<<blocks, kThreads, smem_bytes(n_staged),
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float4*>(bounds), static_cast<const int4*>(meta),
+      static_cast<const float4*>(tris), static_cast<const float*>(o),
+      static_cast<const float*>(d), static_cast<const float*>(mint),
+      static_cast<const float*>(maxt), n_rays, any_hit, n_staged,
+      static_cast<bool*>(hit), static_cast<float*>(t), static_cast<int*>(tri),
+      static_cast<float*>(b1), static_cast<float*>(b2),
+      static_cast<int*>(overflow), static_cast<int*>(counter));
   return static_cast<int>(cudaGetLastError());
+}
+
+// *out = the blocks that such a launch runs on the current device.
+extern "C" int goblin_trace_bvh2_blocks(int n_rays, int n_staged, int* out) {
+  return static_cast<int>(plan_blocks(n_rays, n_staged, out));
+}
+
+// out[0..4] = threads per block, per-ray stack entries, shared-memory bytes
+// of a staged node, of a block beside its nodes, and the bytes a block may
+// take on the current device (kBlocksPerSM blocks to a multiprocessor).
+extern "C" int goblin_trace_bvh2_config(int* out) {
+  out[0] = kThreads;
+  out[1] = kStack;
+  out[2] = kBoundsBytes + kMetaBytes;
+  out[3] = smem_bytes(0);
+  return static_cast<int>(smem_budget(kBlocksPerSM, &out[4]));
 }

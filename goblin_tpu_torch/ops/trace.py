@@ -14,7 +14,12 @@ ray at its first accepted triangle, and then only ``hit`` is defined.
 
 On a CUDA tensor a wrapper launches its kernel (built with nvcc at first
 use, bound with ctypes) and never falls back; on a CPU tensor it runs the
-plain version, the same traversal in vectorised lockstep.
+plain version, the same traversal in vectorised lockstep. Both kernels run
+persistent blocks that draw rays from a counter (the BVH8 kernel a ray at a
+time for each group of 8 lanes, the binary kernel 32 rays a warp); the
+binary kernel also stages the first ``staged_nodes`` nodes of its table in
+shared memory, a prefix the wrapper sizes from the budget the kernel's
+library reports.
 """
 
 from __future__ import annotations
@@ -33,11 +38,18 @@ import numpy as np
 import torch
 
 WIDTH = 8
-STACK = 64  # BVH8 per-ray stack entries, in the kernel and trace_plain
+# BVH8 nodes on the longest root-to-leaf path that a walk can hold: the
+# kernel keeps one stack entry per level (csrc/trace_bvh8.cu kLevels)
+WIDE_LEVELS = 9
+# trace_plain's per-ray stack of child entries: stack_bound(WIDE_LEVELS)
+STACK = 64
 # binary per-ray stack entries, in the kernel and trace_bin_plain: bunny's
 # binary tree has depth 14 (15 entries), so 32 leaves a 2x margin
 BIN_STACK = 32
 EMPTY = -1  # child entry of an unused slot
+# rays in one launch: the counter the blocks draw from runs past the last
+# ray by up to 32 for every warp of the launch and must stay an int32
+MAX_RAYS = (1 << 31) - (1 << 24)
 BIG_T = 3.0e38
 _TINY = 1e-30
 _TRI_EPS = 1e-7
@@ -48,6 +60,8 @@ KERNEL_SOURCES = {
     "trace_bvh8": os.path.join(_PKG, "csrc", "trace_bvh8.cu"),
     "trace_bvh2": os.path.join(_PKG, "csrc", "trace_bvh2.cu"),
 }
+# what both sources include; its bytes enter each library's build key
+KERNEL_HEADERS = (os.path.join(_PKG, "csrc", "trace_common.cuh"),)
 _BUILD_DIR = os.path.join(_PKG, "_build")
 # --fmad=false: no contraction into FMA, so the kernel rounds as eager
 # PyTorch (and trace_plain) does
@@ -147,9 +161,28 @@ def collapse8(bounds: np.ndarray, meta: np.ndarray):
 
 
 def stack_bound(depth: int) -> int:
-    """Most stack entries a traversal of a tree of this depth can hold: a
-    visit pops one entry and pushes at most 8."""
+    """Most child entries trace_plain's stack holds for a tree of this
+    depth: a visit pops one entry and pushes at most 8."""
     return (WIDTH - 1) * depth + 1
+
+
+def check_wide_depth(depth: int) -> None:
+    """Refuse a BVH8 deeper than the trace kernel's per-ray stack: one
+    entry per level, WIDE_LEVELS of them."""
+    if depth > WIDE_LEVELS:
+        raise ValueError(
+            f"BVH8 depth {depth} needs {depth} stack levels; the trace "
+            f"kernel has {WIDE_LEVELS}"
+        )
+
+
+def staged_nodes(n_nodes: int, node_bytes: int, fixed_bytes: int,
+                 budget: int) -> int:
+    """How many leading nodes of a table a kernel stages in shared memory:
+    as many rows of node_bytes as fit in `budget` bytes of a block's shared
+    memory beside fixed_bytes (the barrier and the per-thread stacks), at
+    most all n_nodes. Nodes past the prefix are read from device memory."""
+    return max(0, min(n_nodes, (budget - fixed_bytes) // node_bytes))
 
 
 def tri_rows(soup: np.ndarray) -> np.ndarray:
@@ -261,15 +294,23 @@ def _check_inputs(scene, tables, o, d, mint, maxt):
             raise ValueError("trace_bin: binary tables have the wrong layout")
 
 
+def build_key(name: str) -> str:
+    """Hash of everything a kernel's library is built from: the flags, its
+    source and the header it includes."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (KERNEL_SOURCES[name], *KERNEL_HEADERS):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    return digest.hexdigest()[:16]
+
+
 def build_kernel(name: str = "trace_bvh8") -> tuple[str, str]:
     """Compile KERNEL_SOURCES[name] with nvcc into the package's _build
-    directory, keyed by a hash of the source and flags; a library already
-    built is reused. Returns (library path, compiler output)."""
+    directory, keyed by a hash of the source, the shared header and the
+    flags; a library already built is reused. Returns (library path,
+    compiler output)."""
     source = KERNEL_SOURCES[name]
-    with open(source, "rb") as f:
-        src = f.read()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib_path = os.path.join(_BUILD_DIR, f"{name}-{key}.so")
+    lib_path = os.path.join(_BUILD_DIR, f"{name}-{build_key(name)}.so")
     if os.path.exists(lib_path):
         return lib_path, ""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -298,21 +339,72 @@ def build_kernels() -> dict:
 def _kernel_lib(name: str):
     lib = ctypes.CDLL(build_kernel(name)[0])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    # tables, rays, n_rays, any_hit, [n_staged,] outputs, overflow, counter,
+    # [stats,] stream
+    head, tail = [ptr] * 7 + [i32, i32], [ptr] * 7 + [ptr]
     if name == "trace_bvh8":
-        lib.goblin_trace_bvh8.argtypes = [ptr] * 7 + [i32, i32] + [ptr] * 7
-        lib.goblin_trace_bvh8.restype = i32
-        lib.goblin_trace_bvh8_stats.argtypes = ([ptr] * 7 + [i32, i32]
-                                                + [ptr] * 8)
-        lib.goblin_trace_bvh8_stats.restype = i32
+        entries = {"goblin_trace_bvh8": head + tail,
+                   "goblin_trace_bvh8_stats": head + tail + [ptr],
+                   "goblin_trace_bvh8_blocks": [i32, ptr]}
     else:
-        lib.goblin_trace_bvh2.argtypes = [ptr] * 7 + [i32, i32] + [ptr] * 7
-        lib.goblin_trace_bvh2.restype = i32
+        entries = {"goblin_trace_bvh2": head + [i32] + tail,
+                   "goblin_trace_bvh2_blocks": [i32, i32, ptr],
+                   "goblin_trace_bvh2_config": [ptr]}
+    for entry, argtypes in entries.items():
+        getattr(lib, entry).argtypes = argtypes
+        getattr(lib, entry).restype = i32
     return lib
 
 
-def _launch(entry, counter, tables, o, d, mint, maxt, any_hit, extra=()):
-    """Allocate the outputs, launch `entry` of a kernel library on the
-    current stream, and count the launch. Returns the TraceResult."""
+def launch_blocks(name: str, n_rays: int, n_staged: int = 0) -> int:
+    """Blocks that a launch of n_rays rays runs on the current device, as the
+    kernel's library plans it: the blocks that stay resident at once, or
+    fewer where the rays do not fill them. n_staged is the binary kernel's
+    staged prefix, which sets its blocks' shared memory."""
+    out = ctypes.c_int(0)
+    sizes = (n_rays, n_staged) if name == "trace_bvh2" else (n_rays,)
+    err = getattr(_kernel_lib(name), f"goblin_{name}_blocks")(
+        *sizes, ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"{name}: launch plan failed with CUDA error {err}")
+    return out.value
+
+
+class BinKernelConfig(NamedTuple):
+    threads: int  # per block
+    stack: int  # per-ray stack entries
+    node_bytes: int  # shared memory a staged node takes
+    fixed_bytes: int  # shared memory a block takes beside the nodes
+    budget: int  # shared memory a block may take on this device
+
+
+@functools.cache
+def bin_kernel_config(device_index: int) -> BinKernelConfig:
+    """The built binary kernel's launch shape and its shared-memory budget
+    on a device, as its library reports them."""
+    out = (ctypes.c_int * 5)()
+    with torch.cuda.device(device_index):
+        err = _kernel_lib("trace_bvh2").goblin_trace_bvh2_config(out)
+    if err != 0:
+        raise RuntimeError(f"trace_bvh2: config failed with CUDA error {err}")
+    return BinKernelConfig(*out)
+
+
+def bin_staged_nodes(n_nodes: int, device: torch.device) -> int:
+    """Nodes of an n_nodes binary table that trace_bin stages in shared
+    memory on a CUDA device."""
+    cfg = bin_kernel_config(device.index if device.index is not None
+                            else torch.cuda.current_device())
+    return staged_nodes(n_nodes, cfg.node_bytes, cfg.fixed_bytes, cfg.budget)
+
+
+def _launch(entry, counter, tables, o, d, mint, maxt, any_hit, staged=(),
+            extra=()):
+    """Allocate the outputs and the launch's two zeroed words (the stack
+    overflow flag and the ray counter the persistent warps draw from),
+    launch `entry` of a kernel library on the current stream, and count the
+    launch. `staged` is (n_staged,) for a kernel that stages nodes. Returns
+    the TraceResult."""
     for t in tables:
         if t.data_ptr() % 16:
             raise ValueError("trace: scene tables must be 16-byte aligned")
@@ -325,20 +417,23 @@ def _launch(entry, counter, tables, o, d, mint, maxt, any_hit, extra=()):
     b2 = torch.empty(R, dtype=torch.float32, device=dev)
     if R == 0:
         return TraceResult(hit, t, tri, b1, b2)
-    overflow = torch.zeros(1, dtype=torch.int32, device=dev)
+    if R > MAX_RAYS:
+        raise ValueError(f"trace: {R} rays in one launch, at most {MAX_RAYS}")
+    words = torch.zeros(2, dtype=torch.int32, device=dev)  # overflow, counter
     with torch.cuda.device(dev):
         err = entry(
             *(x.data_ptr() for x in tables), o.data_ptr(), d.data_ptr(),
-            mint.data_ptr(), maxt.data_ptr(), R, int(any_hit),
+            mint.data_ptr(), maxt.data_ptr(), R, int(any_hit), *staged,
             hit.data_ptr(), t.data_ptr(), tri.data_ptr(), b1.data_ptr(),
-            b2.data_ptr(), overflow.data_ptr(), *(x.data_ptr() for x in extra),
+            b2.data_ptr(), words.data_ptr(), words.data_ptr() + 4,
+            *(x.data_ptr() for x in extra),
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"{counter}: launch failed with CUDA error {err}")
     launches[counter] += 1
     # raises at the next synchronisation if a ray's stack overflowed
-    torch._assert_async(overflow[0] == 0)
+    torch._assert_async(words[0] == 0)
     return TraceResult(hit, t, tri, b1, b2)
 
 
@@ -357,9 +452,10 @@ def _trace_cuda(scene, o, d, mint, maxt, any_hit, stats):
 
 def _trace_bin_cuda(scene, o, d, mint, maxt, any_hit):
     _check_inputs(scene, _BIN_TABLES, o, d, mint, maxt)
+    n_staged = bin_staged_nodes(scene["bin_meta"].shape[0], o.device)
     return _launch(_kernel_lib("trace_bvh2").goblin_trace_bvh2, "trace_bvh2",
                    [scene[name] for name in _BIN_TABLES], o, d, mint, maxt,
-                   any_hit)
+                   any_hit, staged=(n_staged,))
 
 
 # ---------------------------------------------------------------------------
@@ -448,7 +544,7 @@ def _slab(lo, hi, o, inv, mint, t_best):
 
 
 def trace_plain(scene, o, d, mint, maxt, any_hit: bool = False,
-                stats: bool = False):
+                stats: bool = False, census: bool = False):
     """The BVH8 kernel's traversal in plain PyTorch, vectorised over rays.
 
     Every ray keeps its own stack in a (R, 64) tensor. Each step pops one
@@ -457,8 +553,13 @@ def trace_plain(scene, o, d, mint, maxt, any_hit: bool = False,
     kernel's order); a leaf tests its triangles with the kernel's
     arithmetic and accept rule. Steps repeat until every stack is empty.
     With stats=True also returns the kernel's per-ray counts (R, 3): inner
-    visits, leaf visits, loop iterations.
+    visits, leaf visits, loop iterations. With census=True it returns
+    instead per-ray counts (R, 4) of the work the walk needed: inner visits,
+    leaf visits, child boxes tested (the visited nodes' slots that are not
+    EMPTY) and triangles tested.
     """
+    if stats and census:
+        raise ValueError("trace_plain: stats or census, not both")
     _check_inputs(scene, _BVH8_TABLES, o, d, mint, maxt)
     bounds, child, tris = (scene["bvh8_bounds"], scene["bvh8_child"],
                            scene["tri_rows"])
@@ -467,6 +568,7 @@ def trace_plain(scene, o, d, mint, maxt, any_hit: bool = False,
     inv = 1.0 / torch.where(d == 0.0, _TINY, d)
     best = _Best(maxt)
     counts = torch.zeros((R, 3), dtype=torch.int32, device=dev)
+    work = torch.zeros((R, 4), dtype=torch.int32, device=dev)
     stack = torch.zeros((R, STACK), dtype=torch.int32, device=dev)
     sp = (mint < best.t).to(torch.int64)  # a dead lane skips the root
     slots = torch.arange(WIDTH, device=dev)
@@ -485,6 +587,9 @@ def trace_plain(scene, o, d, mint, maxt, any_hit: bool = False,
             node = e[inner].long()
             nb = bounds[node]  # (n, 6, 8)
             ent = child[node]  # (n, 8)
+            if census:
+                work[ri, 0] += 1
+                work[ri, 2] += (ent != EMPTY).sum(dim=1).to(torch.int32)
             tn, tf = _slab(nb[:, 0:3], nb[:, 3:6], o[ri][:, :, None],
                            inv[ri][:, :, None], mint[ri][:, None],
                            best.t[ri][:, None])
@@ -506,17 +611,22 @@ def trace_plain(scene, o, d, mint, maxt, any_hit: bool = False,
         if rl.numel():
             counts[rl, 1] += 1
             dec = -(e[~inner].long() + 1)
+            if census:
+                work[rl, 1] += 1
+                work[rl, 3] += (dec & 127).to(torch.int32)
             lanes = _leaf_tests(tris, o, d, mint, best, rl, (dec >> 7) * 8,
                                 dec & 127, any_hit)
             if any_hit:
                 sp[lanes] = 0
+    if census:
+        return best.result(), work
     if stats:
         return best.result(), counts
     return best.result()
 
 
-def trace_bin_plain(scene, o, d, mint, maxt,
-                    any_hit: bool = False) -> TraceResult:
+def trace_bin_plain(scene, o, d, mint, maxt, any_hit: bool = False,
+                    census: bool = False):
     """The binary kernel's traversal in plain PyTorch, vectorised over rays.
 
     Every ray keeps its own stack of (node, entry distance) in (R, 32)
@@ -525,7 +635,9 @@ def trace_bin_plain(scene, o, d, mint, maxt,
     best t; an inner node box-tests both children and pushes the hit ones
     far then near (near: the smaller entry distance, ties to the left
     child); a leaf tests its triangles as trace_plain does. Steps repeat
-    until every stack is empty.
+    until every stack is empty. With census=True also returns per-ray
+    counts (R, 3) of the work the walk needed: inner visits (two box tests
+    each), leaf visits and triangles tested.
     """
     _check_inputs(scene, _BIN_TABLES, o, d, mint, maxt)
     bounds, meta, tris = (scene["bin_bounds"], scene["bin_meta"],
@@ -538,6 +650,7 @@ def trace_bin_plain(scene, o, d, mint, maxt,
     stack_tn = torch.full((R, BIN_STACK), -BIG_T, dtype=torch.float32,
                           device=dev)
     sp = torch.ones(R, dtype=torch.int64, device=dev)  # the root
+    counts = torch.zeros((R, 3), dtype=torch.int32, device=dev)
     while True:
         live = torch.nonzero(sp > 0).squeeze(1)
         if live.numel() == 0:
@@ -551,6 +664,7 @@ def trace_bin_plain(scene, o, d, mint, maxt,
 
         ri = live[inner]
         if ri.numel():
+            counts[ri, 0] += 1
             kids = torch.stack([node[inner] + 1, m[inner, 0].long()], dim=1)
             nb = bounds[kids]  # (n, 2, 8)
             tn, tf = _slab(nb[..., 0:3].transpose(1, 2),
@@ -579,9 +693,13 @@ def trace_bin_plain(scene, o, d, mint, maxt,
 
         rl = live[~inner]
         if rl.numel():
+            counts[rl, 1] += 1
+            counts[rl, 2] += m[~inner, 1]
             lanes = _leaf_tests(tris, o, d, mint, best, rl,
                                 m[~inner, 0].long(), m[~inner, 1].long(),
                                 any_hit)
             if any_hit:
                 sp[lanes] = 0
+    if census:
+        return best.result(), counts
     return best.result()

@@ -14,8 +14,6 @@ import argparse
 import sys
 import time
 
-import torch
-
 from .camera import film as film_mod
 from .integrators import common
 from .scene.loader import load_scene
@@ -37,14 +35,6 @@ def make_li(meta):
     )
 
 
-def resolve_device(name: str) -> torch.device:
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("device cuda was asked for, but CUDA is not "
-                           "available (pass --device cpu to run on the CPU)")
-    return dev
-
-
 def render_context(path: str, overrides=None, device="cuda",
                    chunk_size=1 << 16, report=None, trace_wide=8):
     """Load and render a scene -> (image (H, W, 3) tensor, meta).
@@ -53,7 +43,7 @@ def render_context(path: str, overrides=None, device="cuda",
     each pass or iteration; trace_wide: the trace kernel's tree, 8 (BVH8)
     or 1 (binary). The splatting methods go to splatting.render_dispatch.
     """
-    scene, meta = load_scene(path, overrides, device=resolve_device(device),
+    scene, meta = load_scene(path, overrides, device=device,
                              trace_wide=trace_wide)
     method = meta.settings.get("render_method", "path_tracing")
     if method in SPLAT_METHODS:

@@ -21,8 +21,8 @@ from ..accel.bvh import align_leaves, build_bvh
 from ..camera.camera import CameraSpec
 from ..integrators import materials as mats
 from ..lights.lights import DELTA_LIGHTS, LightsBuild, bake_lights
-from ..ops.trace import (BIN_STACK, STACK, bin_depth, bin_stack_bound,
-                         bin_tables, collapse8, stack_bound, tri_rows)
+from ..ops.trace import (BIN_STACK, bin_depth, bin_stack_bound, bin_tables,
+                         check_wide_depth, collapse8, tri_rows)
 from ..shading.bsdf import MAT_LAMBERT
 from ..shading.textures import TexSpec, TextureSystem
 
@@ -162,11 +162,7 @@ class SceneBuilder:
         MAT[sentinel] = 0
         if trace_wide == 8:
             nodes_b, nodes_c, depth = collapse8(bvh.bounds, bvh.meta)
-            if stack_bound(depth) > STACK:
-                raise ValueError(
-                    f"BVH8 depth {depth} needs {stack_bound(depth)} stack "
-                    f"entries; the trace kernel has {STACK}"
-                )
+            check_wide_depth(depth)
             trace_tables = {"bvh8_bounds": nodes_b, "bvh8_child": nodes_c}
         else:
             depth = bin_depth(bvh.meta)

@@ -16,6 +16,7 @@ import json
 import os
 
 import numpy as np
+import torch
 
 from ..camera.camera import CameraSpec
 from ..camera.film import FilmSpec, FilterSpec
@@ -37,11 +38,24 @@ def _resolve_path(scene_dir, p):
     return p if os.path.isabs(p) else os.path.join(scene_dir, p)
 
 
-def load_scene(path: str, overrides: dict | None = None, device="cpu",
+def resolve_device(name) -> torch.device:
+    """The device a name stands for; asking for cuda without a card raises
+    (nothing falls back to the CPU)."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device cuda was asked for, but CUDA is not "
+                           "available (pass device=\"cpu\" or --device cpu "
+                           "to run on the CPU)")
+    return dev
+
+
+def load_scene(path: str, overrides: dict | None = None, device="cuda",
                trace_wide: int = 8):
     """Load a scene JSON -> (scene dict of tensors on device, SceneMeta).
     overrides patches render_setting keys (e.g. {"max_ray_depth": 5});
+    device defaults to the card and raises where there is none;
     trace_wide picks the trace kernel's tables: 8 (BVH8) or 1 (binary)."""
+    device = resolve_device(device)
     with open(path) as f:
         doc = json.load(f)
     scene_dir = os.path.dirname(os.path.abspath(path))

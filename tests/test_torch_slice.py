@@ -167,10 +167,11 @@ def test_loader_refuses_features_outside_the_slice(tmp_path, name):
 
 def test_bake_refuses_trees_deeper_than_the_kernel_stack(tmp_path,
                                                         monkeypatch):
-    from goblin_tpu_torch.scene import bake
+    from goblin_tpu_torch.ops import trace as ttrace
 
-    monkeypatch.setattr(bake, "STACK", 8)  # bunny's BVH8 needs 7 * 6 + 1
-    with pytest.raises(ValueError, match="stack"):
+    # the kernel keeps one stack entry per level; bunny's BVH8 has 6
+    monkeypatch.setattr(ttrace, "WIDE_LEVELS", 5)
+    with pytest.raises(ValueError, match="stack levels"):
         tloader.load_scene(BUNNY, device="cpu")
 
 

@@ -115,6 +115,67 @@ def test_stats_kernel_matches_plain(cuda, any_hit):
     assert int(counts[:, 1].sum()) > 0
 
 
+def _assert_bit_equal(got, ref, any_hit):
+    assert torch.equal(got.hit, ref.hit)
+    if not any_hit:
+        for name in ("t", "tri", "b1", "b2"):
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("max_leaf", [8, 32])
+def test_kernels_bit_equal_to_plain(cuda, any_hit, max_leaf):
+    """Both kernels against their plain versions, bit for bit, on a ray
+    count that is no multiple of a warp (the last batch is ragged), and the
+    stats instance's counts on every ray."""
+    scene, rays = _scene(cuda, n_rays=(1 << 14) + 5, max_leaf=max_leaf)
+    k1 = tt.trace(scene, *rays, any_hit=any_hit)
+    k2 = tt.trace_bin(scene, *rays, any_hit=any_hit)
+    ks, counts = tt.trace(scene, *rays, any_hit=any_hit, stats=True)
+    torch.cuda.synchronize()
+    p1, ref_counts = tt.trace_plain(scene, *rays, any_hit=any_hit, stats=True)
+    p2 = tt.trace_bin_plain(scene, *rays, any_hit=any_hit)
+    assert int(p1.hit.sum()) > 1000
+    _assert_bit_equal(k1, p1, any_hit)
+    _assert_bit_equal(ks, p1, any_hit)
+    _assert_bit_equal(k2, p2, any_hit)
+    assert torch.equal(counts, ref_counts)
+    assert torch.equal(counts[:, 2], counts[:, 0] + counts[:, 1])
+
+
+def test_persistent_blocks_draw_all_rays(cuda):
+    """More rays than the resident blocks hold at once (ten times the rays
+    get no more blocks): every warp draws several batches from the counter,
+    and each ray's result is the one a small launch gives it."""
+    scene, rays = _scene(cuda, n_rays=300_000)
+    n_staged = tt.bin_staged_nodes(scene["bin_meta"].shape[0], cuda)
+    for fn, name in ((tt.trace, "trace_bvh8"), (tt.trace_bin, "trace_bvh2")):
+        full = fn(scene, *rays)
+        staged = n_staged if name == "trace_bvh2" else 0
+        assert 0 < tt.launch_blocks(name, 300_000, staged) \
+            == tt.launch_blocks(name, 3_000_000, staged)
+        assert tt.launch_blocks(name, 1, staged) == 1
+        parts = [fn(scene, *(r[c:c + 50_000] for r in rays))
+                 for c in range(0, 300_000, 50_000)]
+        torch.cuda.synchronize()
+        for a, b in zip(full, (torch.cat(v) for v in zip(*parts))):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_bin_kernel_stages_a_prefix_of_a_large_tree(cuda, any_hit):
+    """A tree too large for shared memory: the kernel stages its first
+    nodes and reads the others from device memory."""
+    scene, rays = _scene(cuda, n_tri=60_000, max_leaf=8)
+    n_nodes = scene["bin_meta"].shape[0]
+    assert 0 < tt.bin_staged_nodes(n_nodes, cuda) < n_nodes
+    got = tt.trace_bin(scene, *rays, any_hit=any_hit)
+    torch.cuda.synchronize()
+    ref = tt.trace_bin_plain(scene, *rays, any_hit=any_hit)
+    assert int(ref.hit.sum()) > 1000
+    _assert_bit_equal(got, ref, any_hit)
+
+
 def test_kernel_checks_inputs(cuda):
     scene, (o, d, mint, maxt) = _scene(cuda, n_rays=64)
     with pytest.raises(ValueError):
