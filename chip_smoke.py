@@ -5,9 +5,10 @@
 
 Phases, each printed on its own lines, and any failure exits non-zero:
   1. card: nvidia-smi's name and power limit, torch's device name;
-  2. build: csrc/trace_bvh8.cu and csrc/trace_bvh2.cu, one nvcc each,
-     started together (seconds; ptxas's registers, shared memory and stack
-     frame; each kernel's block size, stack levels and shared-memory budget);
+  2. build: csrc/trace_bvh8.cu at widths 8 and 4 and csrc/trace_bvh2.cu,
+     one nvcc each, started together (seconds; ptxas's registers, shared
+     memory and stack frame; each kernel's block size, stack levels and
+     shared-memory budget);
   3. kernel vs plain: the BVH8 kernel against its plain PyTorch version on
      the full-frame bunny primary, bounce-1 continuation and bounce-1
      shadow wavefronts, traced in the main path's 65,536-ray chunks, in
@@ -32,7 +33,24 @@ Phases, each printed on its own lines, and any failure exits non-zero:
      iteration of the width's kernel and none of the other; the widths
      render in turns (1, 8, 8, 1), so neither always runs first;
   9. a 48 x 36, 2-iteration, depth-5 SPPM render at width 1 on the card
-     against the CPU's.
+     against the CPU's;
+ 10. the wide kernel's width-4 instance against its plain version and
+     against the width-8 instance, on bunny.json's and bunny_studio.json's
+     primary, continuation and shadow wavefronts, both hit modes, in chunks
+     and in one launch, with times; its stats instance's counts against the
+     plain version's, and the visit census its bound is computed from;
+ 11. examples/bunny_studio.json (area and sphere lights, analytic spheres
+     and disks, a thin lens, Blinn / mirror / mask materials) with
+     path_tracing at 512 x 384, 4 spp, depth 5 through render_context at
+     trace width 8 and 4 in turns (8, 4, 4, 8): 1 primary + 4 bounces x (4
+     punch-through shadow rounds + 1 continuation) = 21 launches a chunk,
+     252 a render, of the width's kernel and none of another; the two
+     widths' images agree; a 48 x 36 render at width 4 on the card against
+     the CPU's;
+ 12. the studio scene under SPPM, 512 x 384, depth 5, 2 iterations at
+     width 4: a finite non-black image and 1 + 2 x 5 + 6 x 5 = 41 launches
+     an iteration (SPPM's shadow rays take the any-hit query, masks or
+     not); a 48 x 36 render on the card against the CPU's.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Each kernel's row carries its time (CUDA events over launches queued behind
 a spinning kernel, so the host's launch rate stays out of it), its plain
@@ -46,6 +64,7 @@ kernel's plain version on the same rays. No PyTorch call traverses a BVH, so lib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -53,6 +72,7 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BUNNY = os.path.join(REPO, "examples", "bunny.json")
+STUDIO = os.path.join(REPO, "examples", "bunny_studio.json")
 SETTINGS = {"render_method": "path_tracing", "max_ray_depth": 5,
             "sample_per_pixel": 4}
 CHUNK = 1 << 16
@@ -70,6 +90,12 @@ TRI_FLOP = 53
 NO_LIBRARY = "none: no PyTorch call traverses a BVH"
 # phase 8: bunny.json's own settings but 4 of its 100 iterations
 SPPM_ITERATIONS = 4
+# phase 12: the studio scene's SPPM iterations
+STUDIO_SPPM_ITERATIONS = 2
+# closest-hit rounds of a shadow ray where the scene has a mask material
+# (scene/intersect.py occluded_attenuated's max_punch)
+MAX_PUNCH = 4
+
 
 
 class SmokeFailure(Exception):
@@ -81,6 +107,15 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
+def no_launches(**counts):
+    """The launch counters' expected state: zero but for counts."""
+    from goblin_tpu_torch.ops import trace as tt
+
+    want = dict.fromkeys(tt.launches, 0)
+    want.update(counts)
+    return want
+
+
 def nvidia_smi(query):
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -88,12 +123,37 @@ def nvidia_smi(query):
     return out.stdout.strip().splitlines()[0]
 
 
-def chunked(fn, scene, rays, any_hit):
+def ptxas_numbers(log):
+    """What ptxas -v said of each entry function in a build's output ->
+    {"production" | "stats": {registers, shared_bytes, stack_frame_bytes,
+    spill_bytes}}; the stats instance is the template's <true>."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = out.setdefault(
+                "stats" if "ILb1E" in m.group(1) else "production", {})
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack_frame_bytes=int(m.group(1)),
+                       spill_bytes=int(m.group(2)) + int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            cur.update(registers=int(m.group(1)),
+                       shared_bytes=int(smem.group(1)) if smem else 0)
+    return out
+
+
+def chunked(fn, scene, rays, any_hit, **kw):
     """fn over the main path's chunks, results concatenated."""
     import torch
 
     n = rays[0].shape[0]
-    parts = [fn(scene, *(r[c:c + CHUNK] for r in rays), any_hit=any_hit)
+    parts = [fn(scene, *(r[c:c + CHUNK] for r in rays), any_hit=any_hit, **kw)
              for c in range(0, n, CHUNK)]
     return [torch.cat(v) for v in zip(*parts)]
 
@@ -145,9 +205,12 @@ def table_bytes(scene, names):
 def wavefronts(scene, meta):
     """Full-frame primary, bounce-1 continuation and bounce-1 shadow rays
     of pass 0, made by the port's raygen, intersect, BSDF and light code
-    with the path tracer's sample dimensions."""
+    with the path tracer's sample dimensions (lens samples for a thin lens,
+    light samples where a light reads them, the mask pick where the scene
+    has a mask)."""
     import torch
 
+    from goblin_tpu_torch.core.rng import hash_uniform
     from goblin_tpu_torch.integrators import common, path
     from goblin_tpu_torch.integrators.materials import gather_material
     from goblin_tpu_torch.lights import lights as lt
@@ -159,10 +222,17 @@ def wavefronts(scene, meta):
     seed, s_idx, b, n_spp = 0, 0, 0, 4
     pix = torch.arange(spec.x_res * spec.y_res, dtype=torch.int32, device=dev)
     x, y = common.pixel_samples(seed, pix, spec.x_res, s_idx, 2)
-    ray = meta.camera.generate_ray(x, y)
+    lens = ()
+    if not meta.camera.is_delta:
+        lens = [hash_uniform(seed, pix, s_idx, common.BOUNCE_CAMERA, dim)
+                for dim in (common.DIM_LENS_U, common.DIM_LENS_V)]
+    ray = meta.camera.generate_ray(x, y, *lens)
     primary = [ray["o"], ray["d"], ray["mint"], ray["maxt"]]
     frag = intersect(scene, meta, *primary, dxd=ray["dxd"], dyd=ray["dyd"])
-    mat = gather_material(scene, meta, frag)
+    u_mask = None
+    if meta.has_null:
+        u_mask = hash_uniform(seed, pix, s_idx, b, path.DIM_BSDF_COMP)
+    mat = gather_material(scene, meta, frag, u_mask=u_mask)
     p, ns, wo, eps, active = (frag["p"], frag["ns"], frag["wo"], frag["eps"],
                               frag["hit"])
     bu1, bu2 = common.stratified_2d(seed, pix, s_idx, n_spp, b,
@@ -176,7 +246,12 @@ def wavefronts(scene, meta):
             torch.where(cont_ok, 3e37, 0.0)]
     u_pick = common.stratified_1d(seed, pix, s_idx, n_spp, b, path.DIM_PICK)
     lid, _ = lt.pick_light(scene["lights"], u_pick)
-    ls = lt.sample_li(scene["lights"], lid, p, eps)
+    u1 = u2 = None
+    if not meta.all_delta_lights:
+        u1, u2 = common.stratified_2d(seed, pix, s_idx, n_spp, b,
+                                      path.DIM_LIGHT_U1, path.DIM_LIGHT_U2)
+    ls = lt.sample_li(scene["lights"], path._em_tri_data(scene), lid, p, eps,
+                      u1, u2)
     f_l = bx.bsdf_eval(mat, ns, wo, ls["wi"], bx.BSDF_ALL)
     consider = (active & (ls["pdf"] > 0.0) & (ls["Li"] > 0.0).any(dim=-1)
                 & (f_l > 0.0).any(dim=-1))
@@ -240,8 +315,9 @@ def compare_kernel(scene, meta):
     }
 
 
-def reference_check():
-    """Phase 4: a small render on the card against the plain CPU path."""
+def reference_check(path=BUNNY, wide=8):
+    """Phases 4 and 11: a small path-traced render on the card against the
+    plain CPU path."""
     import numpy as np
 
     from goblin_tpu_torch.integrators import common
@@ -251,7 +327,7 @@ def reference_check():
     ovr = dict(SETTINGS, sample_per_pixel=1)
     images = []
     for device in ("cpu", "cuda"):
-        scene, meta = load_scene(BUNNY, ovr, device=device)
+        scene, meta = load_scene(path, ovr, device=device, trace_wide=wide)
         meta.camera = dataclasses.replace(
             meta.camera,
             film=dataclasses.replace(meta.camera.film, x_res=48, y_res=36))
@@ -259,8 +335,8 @@ def reference_check():
     cpu, gpu = images
     close = (np.abs(gpu - cpu) <= 1e-4 + 1e-3 * np.abs(cpu)).all(axis=-1)
     rel_mean = abs(gpu.mean() - cpu.mean()) / cpu.mean()
-    print(f"  48x36 1 spp: pixels within 1e-4 + 1e-3 rel {close.mean():.4f}, "
-          f"mean card {gpu.mean():.6f} cpu {cpu.mean():.6f} "
+    print(f"  48x36 1 spp, width {wide}: pixels within 1e-4 + 1e-3 rel "
+          f"{close.mean():.4f}, mean card {gpu.mean():.6f} cpu {cpu.mean():.6f} "
           f"(rel diff {rel_mean:.2e})", flush=True)
     check(np.isfinite(gpu).all(), "card image has non-finite pixels")
     check(close.mean() >= 0.99, "card and CPU images disagree")
@@ -300,8 +376,7 @@ def main_path():
     check(img.shape == (384, 512, 3), f"image shape {img.shape}")
     check(np.isfinite(img).all(), "image has non-finite pixels")
     check(img.mean() > 0, "image is black")
-    check(launches == {"trace_bvh8": EXPECTED_LAUNCHES, "trace_bvh8_stats": 0,
-                       "trace_bvh2": 0},
+    check(launches == no_launches(trace_bvh8=EXPECTED_LAUNCHES),
           f"kernel launches {launches}, expected {EXPECTED_LAUNCHES} of "
           "trace_bvh8 and no other")
     # bench.py's accounting: 1 + 2 (depth - 1) = 9 lane-rays per
@@ -575,8 +650,7 @@ def sppm_main_path():
             n_chunks = -(-n_pix // sppm.PHOTON_CHUNK)
             per_it = 1 + 2 * max_len + n_chunks * max_len
             mine = "trace_bvh2" if wide == 1 else "trace_bvh8"
-            want = {"trace_bvh8": 0, "trace_bvh8_stats": 0, "trace_bvh2": 0}
-            want[mine] = per_it * SPPM_ITERATIONS
+            want = no_launches(**{mine: per_it * SPPM_ITERATIONS})
             its = np.diff([t0] + marks)
             mean_s[wide].append(float(np.mean(its)))
             print(f"  turn {turn + 1}, width {wide}: {spec.x_res}x{spec.y_res} "
@@ -613,18 +687,18 @@ def sppm_main_path():
     return counts
 
 
-def sppm_reference_check():
-    """Phase 9: a small SPPM render at width 1 on the card against the
-    plain CPU path."""
+def sppm_reference_check(path=BUNNY, wide=1):
+    """Phases 9 and 12: a small SPPM render on the card against the plain
+    CPU path."""
     import numpy as np
 
     from goblin_tpu_torch.integrators.sppm import render_sppm
     from goblin_tpu_torch.scene.loader import load_scene
 
-    ovr = {"sample_per_pixel": 2, "max_ray_depth": 5}
+    ovr = {"render_method": "sppm", "sample_per_pixel": 2, "max_ray_depth": 5}
     images = []
     for device in ("cpu", "cuda"):
-        scene, meta = load_scene(BUNNY, ovr, device=device, trace_wide=1)
+        scene, meta = load_scene(path, ovr, device=device, trace_wide=wide)
         meta.camera = dataclasses.replace(
             meta.camera,
             film=dataclasses.replace(meta.camera.film, x_res=48, y_res=36))
@@ -632,13 +706,258 @@ def sppm_reference_check():
     cpu, gpu = images
     close = (np.abs(gpu - cpu) <= 1e-4 + 1e-3 * np.abs(cpu)).all(axis=-1)
     rel_mean = abs(gpu.mean() - cpu.mean()) / cpu.mean()
-    print(f"  48x36 2 iterations depth 5: pixels within 1e-4 + 1e-3 rel "
-          f"{close.mean():.4f}, mean card {gpu.mean():.6f} cpu "
+    print(f"  48x36 2 iterations depth 5, width {wide}: pixels within 1e-4 + "
+          f"1e-3 rel {close.mean():.4f}, mean card {gpu.mean():.6f} cpu "
           f"{cpu.mean():.6f} (rel diff {rel_mean:.2e})", flush=True)
     check(np.isfinite(gpu).all(), "card SPPM image has non-finite pixels")
     check(cpu.mean() > 0, "CPU SPPM image is black")
     check(close.mean() >= 0.99, "card and CPU SPPM images disagree")
     check(rel_mean <= 1e-3, "card and CPU SPPM image means disagree")
+
+
+def compare_width4(label, path):
+    """Phase 10 for one scene: the width-4 instance against trace_plain at
+    width 4 and against the width-8 instance on the scene's wavefronts, then
+    its stats instance and the census of its primary frame. Returns the
+    scene's numbers for the width-4 row."""
+    import torch
+
+    from goblin_tpu_torch.ops import trace as tt
+    from goblin_tpu_torch.scene.loader import load_scene
+
+    scene, meta = load_scene(path, SETTINGS, device="cuda")
+    scene4, meta4 = load_scene(path, SETTINGS, device="cuda", trace_wide=4)
+    check(torch.equal(scene4["tri_rows"], scene["tri_rows"]),
+          f"{label}: width-4 and width-8 bakes hold different triangles")
+    scene.update({k: scene4[k] for k in tt.wide_tables(4)})
+    print(f"  {label}: {meta.n_tris} triangle rows, {meta.n_nodes} binary "
+          f"nodes; width 4: {meta4.n_wide_nodes} nodes, depth "
+          f"{meta4.wide_depth} of {tt.wide_levels(4)} levels; width 8: "
+          f"{meta.n_wide_nodes} nodes, depth {meta.wide_depth} of "
+          f"{tt.wide_levels(8)}", flush=True)
+    fronts = {name: [r.contiguous() for r in rays]
+              for name, rays in wavefronts(scene, meta).items()}
+    worst, ms = 0.0, {}
+    for name, rays in fronts.items():
+        n = rays[0].shape[0]
+        n_chunks = len(range(0, n, CHUNK))
+        live = (rays[2] < rays[3]).float().mean().item()
+        for any_hit in (False, True):
+            mode = "any-hit" if any_hit else "closest"
+            full = tt.trace(scene, *rays, any_hit=any_hit, width=4)
+            chunks = chunked(tt.trace, scene, rays, any_hit, width=4)
+            plain = tt.trace_plain(scene, *rays, any_hit=any_hit, width=4)
+            k8 = tt.trace(scene, *rays, any_hit=any_hit)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(full, chunks)),
+                  f"{label} {name} {mode}: chunked and full-frame launches "
+                  "of the width-4 kernel differ")
+            l1, e1 = compare_traces(name, mode, full, plain, "vs plain")
+            l2, _ = compare_traces(name, mode, full, k8, "vs width 8")
+            fields = (0,) if any_hit else range(5)
+            bit_equal = all(torch.equal(full[k], plain[k]) for k in fields)
+            worst = max(worst, e1)
+            t = ms[f"{name}/{mode}"] = {
+                "chunk": time_ms(lambda: chunked(tt.trace, scene, rays,
+                                                 any_hit, width=4),
+                                 KERNEL_REPS) / n_chunks,
+                "full": time_ms(lambda: tt.trace(scene, *rays,
+                                                 any_hit=any_hit, width=4),
+                                KERNEL_REPS),
+                "plain_chunk": time_ms(lambda: chunked(
+                    tt.trace_plain, scene, rays, any_hit, width=4), 1)
+                / n_chunks,
+                "plain_full": time_ms(lambda: tt.trace_plain(
+                    scene, *rays, any_hit=any_hit, width=4), 1),
+                "w8_full": time_ms(lambda: tt.trace(scene, *rays,
+                                                    any_hit=any_hit),
+                                   KERNEL_REPS),
+            }
+            print(f"  {label} {name:12s} {mode:8s} rays {n} live {live:.4f} "
+                  f"hits {int(plain[0].sum())} | {l1}, bit-equal "
+                  f"{'yes' if bit_equal else 'no'} | {l2} | width 4 "
+                  f"{t['chunk']:.4f} ms per {min(n, CHUNK)}-ray chunk, "
+                  f"{t['full']:.4f} ms per {n}-ray launch; plain "
+                  f"{t['plain_chunk']:.2f} / {t['plain_full']:.2f} ms; width "
+                  f"8 {t['w8_full']:.4f} ms per {n}-ray launch", flush=True)
+    # the stats instance: counts equal to the plain version's on every ray
+    stats_ms = {}
+    tt.reset_launches()
+    for name in ("primary", "continuation"):
+        rays = fronts[name]
+        res, counts = tt.trace(scene, *rays, stats=True, width=4)
+        ref, ref_counts = tt.trace_plain(scene, *rays, stats=True, width=4)
+        torch.cuda.synchronize()
+        check(torch.equal(counts, ref_counts),
+              f"{label} {name}: width-4 stats counts differ from the plain "
+              f"version's on {int((counts != ref_counts).any(dim=1).sum())} "
+              "rays")
+        check(torch.equal(res.hit, ref.hit),
+              f"{label} {name}: width-4 stats hit masks differ")
+        c = counts[rays[2] < rays[3]].float()
+        stats_ms[name] = time_ms(
+            lambda: tt.trace(scene, *rays, stats=True, width=4), KERNEL_REPS)
+        print(f"  {label} {name:12s} width-4 stats counts equal on "
+              f"{counts.shape[0]} rays; per live ray: inner visits mean "
+              f"{c[:, 0].mean().item():.3f} max {int(c[:, 0].max())}, leaf "
+              f"visits mean {c[:, 1].mean().item():.3f} max "
+              f"{int(c[:, 1].max())} | stats kernel {stats_ms[name]:.4f} ms "
+              f"per launch", flush=True)
+    stats_launches = tt.launches["trace_bvh4_stats"]
+    check(stats_launches == 2 * (1 + 1 + KERNEL_REPS),
+          f"{label}: the width-4 stats instance launched {stats_launches} "
+          "times")
+    primary = fronts["primary"]
+    _, work = tt.trace_plain(scene, *primary, census=True, width=4)
+    work = [int(v) for v in work.sum(dim=0)]
+    n = primary[0].shape[0]
+    print(f"  {label} primary census at width 4 (plain version): "
+          f"{work[0] / n:.3f} inner and {work[1] / n:.3f} leaf visits per "
+          f"ray, {work[2] / work[0]:.3f} child boxes per inner visit, "
+          f"{work[3] / work[1]:.3f} triangles per leaf visit; "
+          f"{tt.launch_blocks('trace_bvh4', n)} persistent blocks per "
+          f"{n}-ray launch, {tt.launch_blocks('trace_bvh4', CHUNK)} per "
+          "chunk, 4 lanes to a ray", flush=True)
+    t = ms["primary/closest"]
+    n_chunks, rest = divmod(n, CHUNK)
+    check(rest == 0, f"the frame is not whole chunks of {CHUNK}")
+    tbytes = table_bytes(scene, tt.wide_tables(4))
+    out = {"max_abs_err": worst, "ms": t["full"], "plain_ms": t["plain_full"],
+           "ms_chunk": t["chunk"], "plain_ms_chunk": t["plain_chunk"],
+           "width8_ms": t["w8_full"], "stats_ms": stats_ms["primary"]}
+    out.update(bound(n, tbytes, work[2], work[3], t["full"]))
+    chunk = bound(CHUNK, tbytes, work[2] // n_chunks, work[3] // n_chunks,
+                  t["chunk"])
+    out.update(bound_ms_chunk=chunk["bound_ms"],
+               roofline_share_chunk=chunk["roofline_share"])
+    return out
+
+
+def studio_launches_per_chunk(depth):
+    """Trace launches the path tracer makes for one chunk of the studio
+    scene: the primary rays, then for each of depth - 1 bounces MAX_PUNCH
+    closest-hit rounds of the shadow rays (the scene has a mask material)
+    and one continuation; no light is a delta-only table, so the last
+    bounce is not peeled."""
+    return 1 + (depth - 1) * (MAX_PUNCH + 1)
+
+
+def studio_main_path():
+    """Phase 11: the studio scene's path tracing through render_context at
+    trace widths 8 and 4, in turns. Returns {width: launches}."""
+    import numpy as np
+    import torch
+
+    from goblin_tpu_torch.ops import trace as tt
+    from goblin_tpu_torch.render import render_context
+
+    images, counts, steady = {}, {}, {4: [], 8: []}
+    for turn, wide in enumerate((8, 4, 4, 8)):
+        marks = []
+
+        def report(done, total):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+
+        torch.cuda.synchronize()
+        tt.reset_launches()
+        t0 = time.perf_counter()
+        img, meta = render_context(STUDIO, SETTINGS, device="cuda",
+                                   chunk_size=CHUNK, report=report,
+                                   trace_wide=wide)
+        torch.cuda.synchronize()
+        launches = dict(tt.launches)
+        img = img.cpu().numpy()
+        spec = meta.camera.film
+        n_pix = spec.x_res * spec.y_res
+        spp = meta.settings["sample_per_pixel"]
+        depth = meta.settings["max_ray_depth"]
+        check(meta.has_null and not meta.all_delta_lights
+              and not meta.camera.is_delta and meta.n_spheres == 2
+              and meta.n_disks == 2, "the studio scene lost a feature")
+        per_chunk = studio_launches_per_chunk(depth)
+        want = per_chunk * -(-n_pix // CHUNK) * spp
+        passes = np.diff([t0] + marks)
+        steady[wide].append(float(np.mean(passes[1:])))
+        print(f"  turn {turn + 1}, width {wide}: {spec.x_res}x{spec.y_res} "
+              f"{spp} spp depth {depth}, {meta.n_tris} triangle rows: seconds "
+              f"per pass {' '.join(f'{p:.4f}' for p in passes)} (the first "
+              f"with the load); passes 2-{spp}: {steady[wide][-1]:.4f} "
+              f"s/pass; launches {launches} (expected {want}: {per_chunk} a "
+              f"chunk); image mean {img.mean():.6f} max {img.max():.4f}",
+              flush=True)
+        check(img.shape == (384, 512, 3), f"image shape {img.shape}")
+        check(np.isfinite(img).all(), f"width {wide}: non-finite pixels")
+        check(img.mean() > 0, f"width {wide}: image is black")
+        check(launches == no_launches(**{f"trace_bvh{wide}": want}),
+              f"width {wide}: launches {launches}, expected {want} of "
+              f"trace_bvh{wide} and no other")
+        images[wide], counts[wide] = img, launches
+    print(f"  steady seconds per pass by turn: width 8 "
+          f"{' '.join(f'{v:.4f}' for v in steady[8])} (turns 1 and 4), width "
+          f"4 {' '.join(f'{v:.4f}' for v in steady[4])} (turns 2 and 3)",
+          flush=True)
+    a, b = images[4], images[8]
+    close = (np.abs(a - b) <= 1e-4 + 1e-3 * np.abs(b)).all(axis=-1)
+    rel_mean = abs(a.mean() - b.mean()) / b.mean()
+    print(f"  width 4 vs width 8: pixels within 1e-4 + 1e-3 rel "
+          f"{close.mean():.6f}, means {a.mean():.6f} / {b.mean():.6f} (rel "
+          f"diff {rel_mean:.2e})", flush=True)
+    check(close.mean() >= 0.99, "width-4 and width-8 studio images disagree")
+    check(rel_mean <= 1e-3, "width-4 and width-8 studio image means disagree")
+    return counts
+
+
+def studio_sppm_path(wide=4):
+    """Phase 12: the studio scene under SPPM at full size. Returns the
+    launches."""
+    import numpy as np
+    import torch
+
+    from goblin_tpu_torch.integrators import sppm
+    from goblin_tpu_torch.ops import trace as tt
+    from goblin_tpu_torch.render import render_context
+
+    ovr = {"render_method": "sppm",
+           "sample_per_pixel": STUDIO_SPPM_ITERATIONS}
+    marks = []
+
+    def report(done, total):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    tt.reset_launches()
+    t0 = time.perf_counter()
+    img, meta = render_context(STUDIO, ovr, device="cuda", report=report,
+                               trace_wide=wide)
+    torch.cuda.synchronize()
+    launches = dict(tt.launches)
+    img = img.cpu().numpy()
+    max_len = meta.settings["max_ray_depth"]
+    spec = meta.camera.film
+    n_chunks = -(-spec.x_res * spec.y_res // sppm.PHOTON_CHUNK)
+    # ray pass: the primary rays, then a bounce's any-hit shadow query (SPPM
+    # does not punch through masks) and its continuation; photon pass: a
+    # trace a bounce of each chunk
+    per_it = 1 + 2 * max_len + n_chunks * max_len
+    its = np.diff([t0] + marks)
+    print(f"  width {wide}: {spec.x_res}x{spec.y_res} depth {max_len}, "
+          f"initial radius {meta.settings['initial_radius']}; seconds per "
+          f"iteration "
+          f"{' '.join(f'{s:.3f}' for s in its)} (the first with the load); "
+          f"launches {launches} (expected {per_it} per iteration: 1 + 2 x "
+          f"{max_len} ray pass + {n_chunks} chunks x {max_len} photon "
+          f"bounces); image mean {img.mean():.6f} max "
+          f"{img.max():.4f}", flush=True)
+    check(img.shape == (384, 512, 3), f"image shape {img.shape}")
+    check(np.isfinite(img).all(), "studio SPPM image has non-finite pixels")
+    check(img.mean() > 0, "studio SPPM image is black")
+    check(launches == no_launches(
+        **{f"trace_bvh{wide}": per_it * STUDIO_SPPM_ITERATIONS}),
+        f"studio SPPM launches {launches}, expected {per_it} per iteration "
+        f"of trace_bvh{wide} and no other")
+    return launches, float(its[-1])
 
 
 def run():
@@ -660,6 +979,7 @@ def run():
     builds = tt.build_kernels()
     print(f"[2] build: {time.perf_counter() - t:.2f} s for "
           f"{', '.join(builds)}", flush=True)
+    ptxas = {name: ptxas_numbers(log) for name, (_, log) in builds.items()}
     for name, (_, log) in builds.items():
         for line in log.splitlines():
             if ("registers" in line or "spill" in line
@@ -667,8 +987,8 @@ def run():
                 print(f"  {name}: {line.strip()}")
 
     cfg = tt.bin_kernel_config(torch.cuda.current_device())
-    print(f"  trace_bvh8: {tt.WIDE_LEVELS} stack levels a ray, no nodes "
-          f"staged; trace_bvh2: blocks of {cfg.threads} threads, {cfg.stack} "
+    print(f"  trace_bvh8: {tt.wide_levels(8)} stack levels a ray, "
+          f"trace_bvh4: {tt.wide_levels(4)}, no nodes staged; trace_bvh2: blocks of {cfg.threads} threads, {cfg.stack} "
           f"stack entries a ray, {cfg.fixed_bytes} B of shared memory a "
           f"block beside {cfg.node_bytes} B a staged node, budget "
           f"{cfg.budget} B a block", flush=True)
@@ -690,7 +1010,7 @@ def run():
     check(torch.equal(scene1["tri_rows"], scene8["tri_rows"]),
           "width-1 and width-8 bakes hold different triangles")
     k2_row, k1_full_ms = compare_bin_kernel(scene8, meta8, scene1)
-    k1_table_bytes = table_bytes(scene8, tt._BVH8_TABLES)
+    k1_table_bytes = table_bytes(scene8, tt.wide_tables(8))
     n_frame = meta8.camera.film.x_res * meta8.camera.film.y_res
 
     print("[7] BVH8 stats instance vs plain counts:", flush=True)
@@ -703,6 +1023,19 @@ def run():
 
     print("[9] SPPM card vs CPU reference render (width 1):", flush=True)
     sppm_reference_check()
+
+    print("[10] the width-4 instance vs plain and vs width 8:", flush=True)
+    w4 = {label: compare_width4(label, path)
+          for label, path in (("bunny", BUNNY), ("studio", STUDIO))}
+
+    print("[11] studio scene, path tracing through render_context:",
+          flush=True)
+    studio_counts = studio_main_path()
+    reference_check(STUDIO, wide=4)
+
+    print("[12] studio scene, SPPM through render_context:", flush=True)
+    studio_sppm_launches, studio_sppm_s = studio_sppm_path()
+    sppm_reference_check(STUDIO, wide=4)
 
     print(f"  clocks.sm, power.draw, temperature: "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -734,11 +1067,33 @@ def run():
         r["launches_per_sppm_iteration"] = (sppm_counts[width][name]
                                             // SPPM_ITERATIONS)
     row["launches_path_tracing"] = pt_launches["trace_bvh8"]
+    row["launches_studio_path_tracing"] = studio_counts[8]["trace_bvh8"]
+    # the width-4 row: bunny's primary frame like the rows above, the studio
+    # scene's beside it; its launches are the studio renders' at width 4
+    w4_row = {"name": "trace_bvh4", "route": "cuda",
+              "source": "goblin_tpu_torch/csrc/trace_bvh8.cu",
+              "replaces": "goblin_tpu/ops/pallas_trace.py:522",
+              "instance": "-DGOBLIN_TRACE_WIDTH=4", **w4["bunny"],
+              "studio": w4["studio"],
+              "launches": studio_counts[4]["trace_bvh4"],
+              "launches_per_pt_pass": studio_counts[4]["trace_bvh4"] // spp,
+              "launches_per_sppm_iteration":
+                  studio_sppm_launches["trace_bvh4"] // STUDIO_SPPM_ITERATIONS,
+              "launches_counted_in": "the studio scene's renders at width 4",
+              "studio_sppm_s_per_iteration": studio_sppm_s}
     # no render path runs the stats instance: its row counts phase 7's census
     stats_row["launches"] = stats_launches
     stats_row["launches_counted_in"] = "phase 7's visit census"
+    row["ptxas"] = ptxas["trace_bvh8"].get("production")
+    stats_row["ptxas"] = ptxas["trace_bvh8"].get("stats")
+    k2_row["ptxas"] = ptxas["trace_bvh2"].get("production")
+    w4_row["ptxas"] = ptxas["trace_bvh4"].get("production")
+    w4_row["ptxas_stats"] = ptxas["trace_bvh4"].get("stats")
+    for r in (row, k2_row, stats_row, w4_row):
+        check(r["ptxas"] and "registers" in r["ptxas"],
+              f"{r['name']}: no ptxas numbers in the build's output")
     print(smi)
-    print(json.dumps({"kernels": [row, k2_row, stats_row]}))
+    print(json.dumps({"kernels": [row, k2_row, stats_row, w4_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -15,6 +15,12 @@ import torch
 from .vecmath import INV_PI, INV_TWO_PI, TWO_PI
 
 
+def uniform_sample_triangle(u1, u2):
+    """-> barycentric (u, v) uniformly over a triangle."""
+    r = torch.sqrt(u1)
+    return 1.0 - r, r * u2
+
+
 def uniform_sample_cone(u1, u2, cos_theta_max):
     """Uniform direction in a z-up cone with half-angle acos(cos_theta_max)."""
     cos_t = 1.0 - u1 + u1 * cos_theta_max
@@ -83,6 +89,20 @@ def power_heuristic(n_a, pdf_a, n_b, pdf_b):
     a = n_a * pdf_a
     b = n_b * pdf_b
     return a * a / torch.clamp(a * a + b * b, min=1e-30)
+
+
+def build_cdf_1d(f):
+    """f: (..., N) nonnegative -> dict with the normalised cdf for inversion
+    sampling (reference CDF1D, src/GoblinSampler.cpp:309-356): dx = 1 / N,
+    cdf[i] = prefix sum / integral, with a leading 0."""
+    f = torch.as_tensor(f, dtype=torch.float32)
+    n = f.shape[-1]
+    dx = 1.0 / n
+    integral = f.sum(dim=-1, keepdim=True) * dx
+    safe_int = torch.where(integral > 0.0, integral, 1.0)
+    cdf = torch.cumsum(f, dim=-1) * dx / safe_int
+    cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
+    return {"func": f, "cdf": cdf, "integral": integral[..., 0], "count": n}
 
 
 def fma_f32(a, b, c):

@@ -66,6 +66,28 @@ def coordinate_system(a1):
     return a2, cross(a1, a2)
 
 
+def spherical_theta(v):
+    return torch.acos(torch.clamp(v[..., 2], -1.0, 1.0))
+
+
+def spherical_phi(v):
+    """phi in [0, 2 pi) (reference src/GoblinUtils.h sphericalPhi)."""
+    p = torch.atan2(v[..., 1], v[..., 0])
+    return torch.where(p < 0.0, p + TWO_PI, p)
+
+
+def quadratic(A, B, C):
+    """Numerically stable quadratic roots (reference
+    src/GoblinUtils.cpp:93-113) -> (has_roots, t1, t2) with t1 <= t2; where
+    has_roots is False the roots are garbage and the caller masks them."""
+    disc = B * B - 4.0 * A * C
+    root = torch.sqrt(torch.clamp(disc, min=0.0))
+    q = torch.where(B < 0.0, -0.5 * (B - root), -0.5 * (B + root))
+    t1 = q / A
+    t2 = C / torch.where(q == 0.0, 1e-30, q)
+    return disc >= 0.0, torch.minimum(t1, t2), torch.maximum(t1, t2)
+
+
 def mat3_apply(m, v):
     """(3, 3) @ (..., 3) -> (..., 3), one row dot per component; m may be
     nested Python lists of floats."""
@@ -99,4 +121,15 @@ def perspective_lh_d3d(fov_y, aspect, zn, zf) -> np.ndarray:
     m[2, 2] = zf / (zf - zn)
     m[2, 3] = -zn * zf / (zf - zn)
     m[3, 2] = 1.0
+    return m
+
+
+def ortho_lh_d3d(w, h, zn, zf) -> np.ndarray:
+    """Left-handed D3D orthographic projection (z in [0, 1]), host numpy."""
+    m = np.zeros((4, 4), dtype=np.float32)
+    m[0, 0] = 2.0 / w
+    m[1, 1] = 2.0 / h
+    m[2, 2] = 1.0 / (zf - zn)
+    m[2, 3] = zn / (zn - zf)
+    m[3, 3] = 1.0
     return m

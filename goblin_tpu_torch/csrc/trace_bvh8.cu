@@ -1,9 +1,12 @@
-// BVH8 ray traversal for Hopper (sm_90a): closest-hit and any-hit.
+// Wide-BVH ray traversal for Hopper (sm_90a): closest-hit and any-hit.
 //
 // Replaces the TPU kernel goblin_tpu/ops/pallas_trace.py::_make_kernel4
-// (entry trace_packets4) at width 8. It computes the same function: for
-// each ray (o, d, mint, maxt) walk the 8-wide BVH that
-// goblin_tpu_torch/ops/trace.py::collapse8 builds from the binary tree,
+// (entry trace_packets4) at width 8 and, built with -DGOBLIN_TRACE_WIDTH=4
+// into a library of its own, at width 4 (what that changes is at the end of
+// this comment; the text before it describes width 8). It computes the same
+// function: for
+// each ray (o, d, mint, maxt) walk the wide BVH that
+// goblin_tpu_torch/ops/trace.py::collapse_wide builds from the binary tree,
 // slab-test all children of a node, visit the live ones nearest first, and
 // test leaf triangles with Moller-Trumbore (edge eps 1e-7, accept
 // mint <= t <= t_best, so the last of equal-t triangles wins). The TPU
@@ -79,14 +82,44 @@
 // the counts are per ray. Every entry taken off the stack is visited (there
 // is no pop-time cull), so iterations = inner + leaf visits. The production
 // instance (kStats = false) compiles the counters out.
+//
+// Width 4 (GOBLIN_TRACE_WIDTH=4; entries goblin_trace_bvh4*): the same
+// code with kWidth = 4. A node is 6 x 4 floats of bounds and 4 child
+// entries; four lanes walk a ray, so a warp holds 8 rays and a block 32, an
+// inner visit is 4 slab tests and a rank over 4 lanes, and a leaf visit
+// tests 4 triangles a round (leaves keep up to 32 triangles from 8-aligned
+// starts). The packed list uses 4 of a word's 8 nibbles. The tree is deeper
+// (bunny's BVH4 has 9 levels, its BVH8 6), so the stack has 16 levels, 15
+// of them in shared memory (3,840 B a block). The width-8 instance's code
+// is what it was: every width-dependent value is a constant of kWidth
+// (ptxas: 56 registers and 1,024 B shared at width 8 as before, 55 and
+// 3,840 B at width 4, no stack frame in either). What bounds it is the same
+// chain of dependent steps, longer here: on bunny's primary frame a ray
+// makes 5.70 inner visits (3.99 at width 8) of 3.90 live boxes and 1.60
+// leaf visits of 17.3 triangles, in rounds of 4; but a warp holds 8 walks
+// instead of 4. Measured on an NVIDIA H100 (700 W) in one call with width
+// 8: 0.137 ms a 196,608-ray primary frame against 0.128, 0.072 ms a
+// 65,536-ray chunk against 0.060; the studio scene's continuation frame
+// 0.183 against 0.219 (PERF.md has every wavefront).
 
 #include "trace_common.cuh"
+
+#ifndef GOBLIN_TRACE_WIDTH
+#define GOBLIN_TRACE_WIDTH 8
+#endif
+
+// the C entries' names carry the width: goblin_trace_bvh8, goblin_trace_bvh4
+#define GOBLIN_CAT2(a, b) a##b
+#define GOBLIN_CAT(a, b) GOBLIN_CAT2(a, b)
+#define GOBLIN_ENTRY(suffix) \
+  GOBLIN_CAT(GOBLIN_CAT(goblin_trace_bvh, GOBLIN_TRACE_WIDTH), suffix)
 
 namespace {
 
 using namespace goblin;
 
-constexpr int kWidth = 8;
+constexpr int kWidth = GOBLIN_TRACE_WIDTH;
+static_assert(kWidth == 8 || kWidth == 4, "the wide kernel is 8 or 4 wide");
 constexpr int kEmpty = -1;
 // lanes to a ray: one for each child slot of a node
 constexpr int kGroup = kWidth;
@@ -95,10 +128,10 @@ constexpr int kGroups = kThreads / kGroup;  // rays a block walks at once
 // blocks that share a multiprocessor: 8 x 128 threads x at most 64 registers
 constexpr int kBlocksPerSM = 8;
 // inner nodes on the longest root-to-leaf path the walk can hold
-// (ops/trace.py WIDE_LEVELS): one stack entry per level
-constexpr int kLevels = 9;
+// (ops/trace.py WIDE_LEVELS, WIDE4_LEVELS): one stack entry per level
+constexpr int kLevels = kWidth == 8 ? 9 : 16;
 
-// The 8 lanes of a group slab-test the 8 children of node e, a child a
+// The lanes of a group slab-test the children of node e, a child a
 // lane. Returns, on every lane, the children the ray enters, nearest first
 // (a stable sort on entry distance), packed four bits a child from the low
 // end: slot + 1, and 0 ends the list.
@@ -130,7 +163,7 @@ __device__ __forceinline__ uint32_t visit_inner(
 
 template <bool kStats>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSM)
-trace_bvh8_kernel(const float* __restrict__ bounds,
+trace_wide_kernel(const float* __restrict__ bounds,
                   const int* __restrict__ child,
                   const float4* __restrict__ tris,
                   const float* __restrict__ o, const float* __restrict__ d,
@@ -144,7 +177,8 @@ trace_bvh8_kernel(const float* __restrict__ bounds,
   __shared__ uint2 s_stack[kLevels - 1][kGroups];
   const int lane = threadIdx.x & 31;
   const int c = lane & (kGroup - 1);            // this lane's child slot
-  const unsigned gmask = 0xffu << (lane & ~(kGroup - 1));  // its group
+  const unsigned gmask = ((1u << kGroup) - 1u)
+                         << (lane & ~(kGroup - 1));  // its group
   const int g = threadIdx.x / kGroup;
 
   // Each group walks one ray at a time, and all of its lanes hold the same
@@ -242,9 +276,9 @@ trace_bvh8_kernel(const float* __restrict__ bounds,
 // fewer where the rays do not fill them.
 template <bool kStats>
 cudaError_t plan_blocks(int n_rays, int* blocks) {
-  static LaunchPlan<decltype(&trace_bvh8_kernel<kStats>)> plan;
+  static LaunchPlan<decltype(&trace_wide_kernel<kStats>)> plan;
   const cudaError_t err =
-      plan.blocks(&trace_bvh8_kernel<kStats>, kThreads, 0, blocks);
+      plan.blocks(&trace_wide_kernel<kStats>, kThreads, 0, blocks);
   if (err != cudaSuccess) return err;
   const int needed = (n_rays + kGroups - 1) / kGroups;
   if (needed < *blocks) *blocks = needed;
@@ -261,7 +295,7 @@ int launch(const void* bounds, const void* child, const void* tris,
   int blocks = 0;
   const cudaError_t err = plan_blocks<kStats>(n_rays, &blocks);
   if (err != cudaSuccess) return static_cast<int>(err);
-  trace_bvh8_kernel<kStats><<<blocks, kThreads, 0,
+  trace_wide_kernel<kStats><<<blocks, kThreads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(bounds), static_cast<const int*>(child),
       static_cast<const float4*>(tris), static_cast<const float*>(o),
@@ -279,32 +313,30 @@ int launch(const void* bounds, const void* child, const void* tris,
 // Plain C entries for ctypes. Each launches on `stream`, does not
 // synchronise, and returns cudaGetLastError() (0 on success). overflow and
 // counter point at zeroed int32 words.
-extern "C" int goblin_trace_bvh8(const void* bounds, const void* child,
-                                 const void* tris, const void* o,
-                                 const void* d, const void* mint,
-                                 const void* maxt, int n_rays, int any_hit,
-                                 void* hit, void* t, void* tri, void* b1,
-                                 void* b2, void* overflow, void* counter,
-                                 void* stream) {
+extern "C" int GOBLIN_ENTRY()(const void* bounds, const void* child,
+                              const void* tris, const void* o, const void* d,
+                              const void* mint, const void* maxt, int n_rays,
+                              int any_hit, void* hit, void* t, void* tri,
+                              void* b1, void* b2, void* overflow,
+                              void* counter, void* stream) {
   return launch<false>(bounds, child, tris, o, d, mint, maxt, n_rays, any_hit,
                        hit, t, tri, b1, b2, overflow, counter, nullptr,
                        stream);
 }
 
 // The stats variant: stats is (n_rays, 3) int32.
-extern "C" int goblin_trace_bvh8_stats(const void* bounds, const void* child,
-                                       const void* tris, const void* o,
-                                       const void* d, const void* mint,
-                                       const void* maxt, int n_rays,
-                                       int any_hit, void* hit, void* t,
-                                       void* tri, void* b1, void* b2,
-                                       void* overflow, void* counter,
-                                       void* stats, void* stream) {
+extern "C" int GOBLIN_ENTRY(_stats)(const void* bounds, const void* child,
+                                    const void* tris, const void* o,
+                                    const void* d, const void* mint,
+                                    const void* maxt, int n_rays, int any_hit,
+                                    void* hit, void* t, void* tri, void* b1,
+                                    void* b2, void* overflow, void* counter,
+                                    void* stats, void* stream) {
   return launch<true>(bounds, child, tris, o, d, mint, maxt, n_rays, any_hit,
                       hit, t, tri, b1, b2, overflow, counter, stats, stream);
 }
 
 // *out = the blocks that a launch of n_rays rays runs on the current device.
-extern "C" int goblin_trace_bvh8_blocks(int n_rays, int* out) {
+extern "C" int GOBLIN_ENTRY(_blocks)(int n_rays, int* out) {
   return static_cast<int>(plan_blocks<false>(n_rays, out));
 }

@@ -19,6 +19,8 @@ from ..core.rng import hash_uniform
 # reserved dimension ids for the hash streams
 DIM_PIXEL_X = 0
 DIM_PIXEL_Y = 1
+DIM_LENS_U = 2
+DIM_LENS_V = 3
 DIM_BASE = 4  # integrator dims start here
 # bounce id used for camera-sample dims
 BOUNCE_CAMERA = 0x7FFF
@@ -87,7 +89,13 @@ def make_render_pass(scene, meta, li_fn, spp, seed, chunk_size=1 << 16):
         for c0 in range(0, n_pix, chunk_size):
             pix = pixel_ids[c0:c0 + chunk_size]
             x, y = pixel_samples(seed, pix, spec.x_res, s_idx, n_grid)
-            ray = cam.generate_ray(x, y)
+            if cam.is_delta:  # a pinhole or orthographic camera has no lens
+                ray = cam.generate_ray(x, y)
+            else:
+                ray = cam.generate_ray(
+                    x, y,
+                    hash_uniform(seed, pix, s_idx, BOUNCE_CAMERA, DIM_LENS_U),
+                    hash_uniform(seed, pix, s_idx, BOUNCE_CAMERA, DIM_LENS_V))
             L[c0:c0 + pix.numel()] = li_fn(scene, meta, ray, pix, s_idx, seed)
         jx = hash_uniform(seed, pixel_ids, s_idx, BOUNCE_CAMERA, DIM_PIXEL_X)
         jy = hash_uniform(seed, pixel_ids, s_idx, BOUNCE_CAMERA, DIM_PIXEL_Y)

@@ -1,13 +1,14 @@
 """Unidirectional path tracer with NEE + MIS in wavefront form (port of
-goblin_tpu/integrators/path.py for scenes with delta lights).
+goblin_tpu/integrators/path.py).
 
 Per bounce (reference src/GoblinPathtracer.cpp:50-208): one power-CDF
 light pick, one NEE shadow ray (MIS with the power heuristic; none for
 delta lights), and one BSDF continuation sample whose hit doubles as the
 BSDF-side light contribution. Specular lobes take full weight on the BSDF
 side. No Russian roulette: max_ray_depth - 1 bounces. Inactive lanes are
-masked. When every light is a delta light, a BSDF ray can never hit an
-emitter, so the last bounce skips its continuation trace.
+masked. A shadow ray punches through mask (null-lobe) surfaces with their
+attenuation. When every light is a delta light, a BSDF ray can never hit
+an emitter, so the last bounce skips its continuation trace.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..core import vecmath as vm
+from ..core.rng import hash_uniform
 from ..core.sampling import power_heuristic
 from ..lights import lights as lt
 from ..scene import intersect as scn
@@ -24,6 +26,8 @@ from .materials import gather_material
 
 # per-bounce dimension layout (goblin_tpu's)
 DIM_PICK = DIM_BASE + 0
+DIM_LIGHT_U1 = DIM_BASE + 1
+DIM_LIGHT_U2 = DIM_BASE + 2
 DIM_BSDF_U1 = DIM_BASE + 3
 DIM_BSDF_U2 = DIM_BASE + 4
 DIM_BSDF_COMP = DIM_BASE + 5
@@ -45,8 +49,7 @@ def _env_le(scene, meta, d):
 
 def _area_light_Le(scene, frag, wo):
     """Emission toward wo from the hit point, one-sided (reference
-    AreaLight::L: dot(ns, w) > 0). Zero for lanes that hit no emitter,
-    which is every lane while only delta lights load."""
+    AreaLight::L: dot(ns, w) > 0). Zero for lanes that hit no emitter."""
     lid = frag["light"]
     Le = scene["lights"]["color"][torch.clamp(lid, min=0)]
     facing = vm.dot(frag["ns"], wo) > 0.0
@@ -62,6 +65,7 @@ def make_li(meta, max_depth=None):
 
     def li(scene, meta_, ray, pixel_ids, s_idx, seed):
         lights = scene["lights"]
+        tri_data = _em_tri_data(scene)
         R = ray["o"].shape[0]
         frag = scn.intersect(scene, meta, ray["o"], ray["d"], ray["mint"],
                              ray["maxt"], dxd=ray.get("dxd"),
@@ -74,14 +78,22 @@ def make_li(meta, max_depth=None):
         def bounce(state, b, trace_cont=True):
             L, throughput, frag, active = state
             p, ns, wo, eps = frag["p"], frag["ns"], frag["wo"], frag["eps"]
-            mat = gather_material(scene, meta, frag)
+            u_mask = None
+            if meta.has_null:
+                u_mask = hash_uniform(seed, pixel_ids, s_idx, b, DIM_BSDF_COMP)
+            mat = gather_material(scene, meta, frag, u_mask=u_mask)
 
             # pick a light by its power
             u_pick = stratified_1d(seed, pixel_ids, s_idx, n_spp, b, DIM_PICK)
             lid, pick_pdf = lt.pick_light(lights, u_pick)
 
             # light-sample side (NEE)
-            ls = lt.sample_li(lights, lid, p, eps)
+            if meta.all_delta_lights:  # no light reads the samples
+                u1 = u2 = None
+            else:
+                u1, u2 = stratified_2d(seed, pixel_ids, s_idx, n_spp, b,
+                                       DIM_LIGHT_U1, DIM_LIGHT_U2)
+            ls = lt.sample_li(lights, tri_data, lid, p, eps, u1, u2)
             f_l = bx.bsdf_eval(mat, ns, wo, ls["wi"], bx.BSDF_ALL)
             consider = (active & (ls["pdf"] > 0.0)
                         & (ls["Li"] > 0.0).any(dim=-1)

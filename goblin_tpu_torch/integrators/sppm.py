@@ -38,7 +38,7 @@ from ..scene import intersect as scn
 from ..shading import bsdf as bx
 from .common import pixel_samples, spp_grid
 from .materials import gather_material
-from .path import _area_light_Le, _env_le
+from .path import _area_light_Le, _em_tri_data, _env_le
 
 ALPHA = 0.7
 PHOTON_CHUNK = 1 << 15  # photons per deposit chunk
@@ -87,12 +87,15 @@ def make_ray_pass(scene, meta, seed, max_len, n_grid):
     cam = meta.camera
     spec = cam.film
     lights = scene["lights"]
+    tri_data = _em_tri_data(scene)
 
     def ray_pass(pixel_ids, it: int):
         R = pixel_ids.shape[0]
         dev = pixel_ids.device
         x, y = pixel_samples(seed, pixel_ids, spec.x_res,
                              it % (n_grid * n_grid), n_grid)
+        # no lens samples: a thin-lens camera renders as a pinhole here,
+        # as in goblin_tpu's SPPM
         ray = cam.generate_ray(x, y)
         frag = scn.intersect(scene, meta, ray["o"], ray["d"], ray["mint"],
                              ray["maxt"])
@@ -115,9 +118,11 @@ def make_ray_pass(scene, meta, seed, max_len, n_grid):
             return qmc_uniform(seed, pixel_ids, h_tab[b][k], k, salt=b)
 
         for b in range(max_len):
-            # dim 0 feeds mask materials and dims 2-3 area-light sampling,
-            # which the loader refuses: they are not drawn
-            mat = gather_material(scene, meta, frag)
+            # dim 0 picks a mask material's lobe; dims 2-3 sample an area
+            # light: neither is drawn where the scene has no use for it
+            mat = gather_material(
+                scene, meta, frag,
+                u_mask=qmc(b, 0) if meta.has_null else None)
             ns, wo, p, eps = frag["ns"], frag["wo"], frag["p"], frag["eps"]
             path_len = b + 1
 
@@ -125,7 +130,10 @@ def make_ray_pass(scene, meta, seed, max_len, n_grid):
             # partner, as in the path tracer
             if meta.n_lights > 0:
                 lid, pick_pdf = lt.pick_light(lights, qmc(b, 1))
-                ls = lt.sample_li(lights, lid, p, eps)
+                u1 = u2 = None
+                if not meta.all_delta_lights:
+                    u1, u2 = qmc(b, 2), qmc(b, 3)
+                ls = lt.sample_li(lights, tri_data, lid, p, eps, u1, u2)
                 f_l = bx.bsdf_eval(mat, ns, wo, ls["wi"], bx.BSDF_ALL)
                 consider = (active & (ls["pdf"] > 0.0)
                             & (ls["Li"] > 0.0).any(dim=-1)

@@ -6,17 +6,19 @@ Port of goblin_tpu/ops/pallas_trace.py's two traversals, with one contract
 tri, b1, b2) with t = 3e38 on a miss and tri in BVH order; any-hit stops a
 ray at its first accepted triangle, and then only ``hit`` is defined.
 
-- Width 8 (the default): ``collapse8`` is ``collapse4(width=8)`` without
-  the TPU bias packing; ``trace`` launches csrc/trace_bvh8.cu, and with
-  ``stats=True`` its instance that also counts per-ray node visits.
+- Width 8 (the default) and width 4: ``collapse_wide`` is ``collapse4`` at
+  that width without the TPU bias packing; ``trace`` launches
+  csrc/trace_bvh8.cu, which is built once for each width (the width is a
+  compile-time constant of the source), and with ``stats=True`` the
+  instance that also counts per-ray node visits.
 - Width 1: ``bin_tables`` is ``pack_scene``'s per-node layout of the
   binary tree; ``trace_bin`` launches csrc/trace_bvh2.cu.
 
 On a CUDA tensor a wrapper launches its kernel (built with nvcc at first
 use, bound with ctypes) and never falls back; on a CPU tensor it runs the
 plain version, the same traversal in vectorised lockstep. Both kernels run
-persistent blocks that draw rays from a counter (the BVH8 kernel a ray at a
-time for each group of 8 lanes, the binary kernel 32 rays a warp); the
+persistent blocks that draw rays from a counter (the wide kernel a ray at a
+time for each group of 8 or 4 lanes, the binary kernel 32 rays a warp); the
 binary kernel also stages the first ``staged_nodes`` nodes of its table in
 shared memory, a prefix the wrapper sizes from the budget the kernel's
 library reports.
@@ -38,10 +40,16 @@ import numpy as np
 import torch
 
 WIDTH = 8
-# BVH8 nodes on the longest root-to-leaf path that a walk can hold: the
-# kernel keeps one stack entry per level (csrc/trace_bvh8.cu kLevels)
+WIDTHS = (4, 8)  # of the collapsed trees
+# Collapsed nodes on the longest root-to-leaf path that a walk can hold: the
+# kernel keeps one stack entry per level (csrc/trace_bvh8.cu kLevels). Width
+# 8 was sized from bunny's BVH8 depth 6. A 4-wide tree is deeper (bunny's
+# and the studio scene's have depth 9, their binary tree 14): 16 levels
+# hold any tree whose binary depth the width-1 kernel's stack also holds.
 WIDE_LEVELS = 9
-# trace_plain's per-ray stack of child entries: stack_bound(WIDE_LEVELS)
+WIDE4_LEVELS = 16
+# trace_plain's per-ray stack of child entries: stack_bound(WIDE_LEVELS) at
+# width 8, and at least stack_bound(WIDE4_LEVELS, 4)
 STACK = 64
 # binary per-ray stack entries, in the kernel and trace_bin_plain: bunny's
 # binary tree has depth 14 (15 entries), so 32 leaves a 2x margin
@@ -58,8 +66,11 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # kernel name -> CUDA source; each builds into its own library
 KERNEL_SOURCES = {
     "trace_bvh8": os.path.join(_PKG, "csrc", "trace_bvh8.cu"),
+    "trace_bvh4": os.path.join(_PKG, "csrc", "trace_bvh8.cu"),
     "trace_bvh2": os.path.join(_PKG, "csrc", "trace_bvh2.cu"),
 }
+# what a kernel's build defines besides: the wide source's width
+KERNEL_DEFINES = {"trace_bvh4": ("-DGOBLIN_TRACE_WIDTH=4",)}
 # what both sources include; its bytes enter each library's build key
 KERNEL_HEADERS = (os.path.join(_PKG, "csrc", "trace_common.cuh"),)
 _BUILD_DIR = os.path.join(_PKG, "_build")
@@ -72,7 +83,8 @@ NVCC_FLAGS = (
 
 # CUDA kernel launches per kernel since the last reset (chip_smoke.py reads
 # them to show that a render went through the kernels)
-launches = {"trace_bvh8": 0, "trace_bvh8_stats": 0, "trace_bvh2": 0}
+launches = {"trace_bvh8": 0, "trace_bvh8_stats": 0, "trace_bvh4": 0,
+            "trace_bvh4_stats": 0, "trace_bvh2": 0}
 
 
 def reset_launches() -> None:
@@ -103,15 +115,18 @@ def leaf_entry(first: int, count: int) -> int:
     return -(((first // 8) << 7) | count) - 1
 
 
-def collapse8(bounds: np.ndarray, meta: np.ndarray):
-    """Binary BVH (pre-order, skip links, 8-aligned leaves) -> 8-wide tree.
+def collapse_wide(bounds: np.ndarray, meta: np.ndarray, width: int = WIDTH):
+    """Binary BVH (pre-order, skip links, 8-aligned leaves) -> a tree `width`
+    (4 or 8) wide.
 
-    Each wide node gathers up to 8 subtree roots under a binary inner node,
-    opening the largest-area inner root first (collapse4's rule), and node
-    ids are assigned in the same DFS pre-order as collapse4. Returns
-    (node_bounds (N8, 6, 8) f32, node_child (N8, 8) i32, depth), where
+    Each wide node gathers up to `width` subtree roots under a binary inner
+    node, opening the largest-area inner root first (collapse4's rule), and
+    node ids are assigned in the same DFS pre-order as collapse4. Returns
+    (node_bounds (N, 6, width) f32, node_child (N, width) i32, depth), where
     depth counts wide nodes on the longest root-to-leaf path.
     """
+    if width not in WIDTHS:
+        raise ValueError(f"collapse_wide: width {width!r} is not in {WIDTHS}")
     is_leaf = meta[:, 1] > 0
     rows_b: list[np.ndarray] = []
     rows_c: list[np.ndarray] = []
@@ -124,14 +139,14 @@ def collapse8(bounds: np.ndarray, meta: np.ndarray):
         return [j + 1, int(meta[j + 1, 2])]
 
     def new_row():
-        rows_b.append(np.zeros((6, WIDTH), np.float32))
-        rows_c.append(np.full(WIDTH, EMPTY, np.int32))
+        rows_b.append(np.zeros((6, width), np.float32))
+        rows_c.append(np.full(width, EMPTY, np.int32))
         return len(rows_b) - 1
 
     def emit(j) -> tuple[int, int]:
         my = new_row()
         group = kids(j)
-        while len(group) < WIDTH:
+        while len(group) < width:
             inners = [g for g in group if not is_leaf[g]]
             if not inners:
                 break
@@ -160,19 +175,29 @@ def collapse8(bounds: np.ndarray, meta: np.ndarray):
     return np.stack(rows_b), np.stack(rows_c), depth
 
 
-def stack_bound(depth: int) -> int:
+def collapse8(bounds: np.ndarray, meta: np.ndarray):
+    """collapse_wide at width 8."""
+    return collapse_wide(bounds, meta, 8)
+
+
+def stack_bound(depth: int, width: int = WIDTH) -> int:
     """Most child entries trace_plain's stack holds for a tree of this
-    depth: a visit pops one entry and pushes at most 8."""
-    return (WIDTH - 1) * depth + 1
+    depth and width: a visit pops one entry and pushes at most `width`."""
+    return (width - 1) * depth + 1
 
 
-def check_wide_depth(depth: int) -> None:
-    """Refuse a BVH8 deeper than the trace kernel's per-ray stack: one
-    entry per level, WIDE_LEVELS of them."""
-    if depth > WIDE_LEVELS:
+def wide_levels(width: int = WIDTH) -> int:
+    """Stack levels the trace kernel of this width keeps for a ray."""
+    return WIDE_LEVELS if width == 8 else WIDE4_LEVELS
+
+
+def check_wide_depth(depth: int, width: int = WIDTH) -> None:
+    """Refuse a collapsed tree deeper than the trace kernel's per-ray stack:
+    one entry per level, wide_levels(width) of them."""
+    if depth > wide_levels(width):
         raise ValueError(
-            f"BVH8 depth {depth} needs {depth} stack levels; the trace "
-            f"kernel has {WIDE_LEVELS}"
+            f"BVH{width} depth {depth} needs {depth} stack levels; the trace "
+            f"kernel has {wide_levels(width)}"
         )
 
 
@@ -233,20 +258,31 @@ def bin_stack_bound(depth: int) -> int:
 
 _BVH8_TABLES = {"bvh8_bounds": torch.float32, "bvh8_child": torch.int32,
                 "tri_rows": torch.float32}
+_BVH4_TABLES = {"bvh4_bounds": torch.float32, "bvh4_child": torch.int32,
+                "tri_rows": torch.float32}
 _BIN_TABLES = {"bin_bounds": torch.float32, "bin_meta": torch.int32,
                "tri_rows": torch.float32}
 
 
+def wide_tables(width: int) -> dict:
+    """Names and types of the scene tables the width's traversal reads."""
+    if width not in WIDTHS:
+        raise ValueError(f"trace: width {width!r} is not in {WIDTHS}")
+    return _BVH8_TABLES if width == 8 else _BVH4_TABLES
+
+
 def trace(scene, o, d, mint, maxt, any_hit: bool = False,
-          stats: bool = False):
-    """Trace rays (o, d (R, 3); mint, maxt (R,)) through the scene's BVH8
-    tables: the CUDA kernel for CUDA tensors, trace_plain for CPU ones.
-    Returns a TraceResult; with stats=True, (TraceResult, counts (R, 3)
-    int32 of inner visits, leaf visits and loop iterations per ray)."""
+          stats: bool = False, width: int = WIDTH):
+    """Trace rays (o, d (R, 3); mint, maxt (R,)) through the scene's
+    collapsed tables of `width` (bvh8_* or bvh4_*): the CUDA kernel for CUDA
+    tensors, trace_plain for CPU ones. Returns a TraceResult; with
+    stats=True, (TraceResult, counts (R, 3) int32 of inner visits, leaf
+    visits and loop iterations per ray)."""
     if o.device.type == "cuda":
-        return _trace_cuda(scene, o, d, mint, maxt, any_hit, stats)
+        return _trace_cuda(scene, o, d, mint, maxt, any_hit, stats, width)
     if o.device.type == "cpu":
-        return trace_plain(scene, o, d, mint, maxt, any_hit, stats)
+        return trace_plain(scene, o, d, mint, maxt, any_hit, stats,
+                           width=width)
     raise ValueError(f"trace: no traversal for device {o.device}")
 
 
@@ -282,11 +318,12 @@ def _check_inputs(scene, tables, o, d, mint, maxt):
             raise ValueError(f"trace: {name} must be contiguous")
     if scene["tri_rows"].shape[1:] != (12,):
         raise ValueError("trace: tri_rows must be (T, 12)")
-    if "bvh8_child" in tables:
-        n8 = scene["bvh8_child"].shape[0]
-        if tuple(scene["bvh8_bounds"].shape) != (n8, 6, WIDTH) or \
-                tuple(scene["bvh8_child"].shape) != (n8, WIDTH):
-            raise ValueError("trace: BVH8 tables have the wrong layout")
+    if "bin_meta" not in tables:
+        width = 8 if "bvh8_child" in tables else 4
+        n = scene[f"bvh{width}_child"].shape[0]
+        if tuple(scene[f"bvh{width}_bounds"].shape) != (n, 6, width) or \
+                tuple(scene[f"bvh{width}_child"].shape) != (n, width):
+            raise ValueError(f"trace: BVH{width} tables have the wrong layout")
     else:
         n = scene["bin_meta"].shape[0]
         if tuple(scene["bin_bounds"].shape) != (n, 8) or \
@@ -295,9 +332,10 @@ def _check_inputs(scene, tables, o, d, mint, maxt):
 
 
 def build_key(name: str) -> str:
-    """Hash of everything a kernel's library is built from: the flags, its
-    source and the header it includes."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    """Hash of everything a kernel's library is built from: the flags and
+    defines, its source and the header it includes."""
+    flags = NVCC_FLAGS + KERNEL_DEFINES.get(name, ())
+    digest = hashlib.sha256(" ".join(flags).encode())
     for path in (KERNEL_SOURCES[name], *KERNEL_HEADERS):
         with open(path, "rb") as f:
             digest.update(f.read())
@@ -305,10 +343,10 @@ def build_key(name: str) -> str:
 
 
 def build_kernel(name: str = "trace_bvh8") -> tuple[str, str]:
-    """Compile KERNEL_SOURCES[name] with nvcc into the package's _build
-    directory, keyed by a hash of the source, the shared header and the
-    flags; a library already built is reused. Returns (library path,
-    compiler output)."""
+    """Compile KERNEL_SOURCES[name] (with KERNEL_DEFINES[name], if any) with
+    nvcc into the package's _build directory, keyed by a hash of the source,
+    the shared header and the flags; a library already built is reused.
+    Returns (library path, compiler output)."""
     source = KERNEL_SOURCES[name]
     lib_path = os.path.join(_BUILD_DIR, f"{name}-{build_key(name)}.so")
     if os.path.exists(lib_path):
@@ -318,7 +356,8 @@ def build_kernel(name: str = "trace_bvh8") -> tuple[str, str]:
         raise RuntimeError(f"{name}: nvcc not found (needs the CUDA toolkit)")
     os.makedirs(_BUILD_DIR, exist_ok=True)
     tmp = f"{lib_path}.{os.getpid()}.tmp"
-    proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, source],
+    proc = subprocess.run([nvcc, *NVCC_FLAGS, *KERNEL_DEFINES.get(name, ()),
+                           "-o", tmp, source],
                           capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         raise RuntimeError(f"{name}: nvcc failed\n{proc.stdout}{proc.stderr}")
@@ -342,10 +381,10 @@ def _kernel_lib(name: str):
     # tables, rays, n_rays, any_hit, [n_staged,] outputs, overflow, counter,
     # [stats,] stream
     head, tail = [ptr] * 7 + [i32, i32], [ptr] * 7 + [ptr]
-    if name == "trace_bvh8":
-        entries = {"goblin_trace_bvh8": head + tail,
-                   "goblin_trace_bvh8_stats": head + tail + [ptr],
-                   "goblin_trace_bvh8_blocks": [i32, ptr]}
+    if name in ("trace_bvh8", "trace_bvh4"):
+        entries = {f"goblin_{name}": head + tail,
+                   f"goblin_{name}_stats": head + tail + [ptr],
+                   f"goblin_{name}_blocks": [i32, ptr]}
     else:
         entries = {"goblin_trace_bvh2": head + [i32] + tail,
                    "goblin_trace_bvh2_blocks": [i32, i32, ptr],
@@ -437,16 +476,18 @@ def _launch(entry, counter, tables, o, d, mint, maxt, any_hit, staged=(),
     return TraceResult(hit, t, tri, b1, b2)
 
 
-def _trace_cuda(scene, o, d, mint, maxt, any_hit, stats):
-    _check_inputs(scene, _BVH8_TABLES, o, d, mint, maxt)
-    lib = _kernel_lib("trace_bvh8")
-    tables = [scene[name] for name in _BVH8_TABLES]
+def _trace_cuda(scene, o, d, mint, maxt, any_hit, stats, width):
+    names = wide_tables(width)
+    _check_inputs(scene, names, o, d, mint, maxt)
+    kernel = f"trace_bvh{width}"
+    lib = _kernel_lib(kernel)
+    tables = [scene[name] for name in names]
     if not stats:
-        return _launch(lib.goblin_trace_bvh8, "trace_bvh8", tables, o, d,
+        return _launch(getattr(lib, f"goblin_{kernel}"), kernel, tables, o, d,
                        mint, maxt, any_hit)
     counts = torch.zeros((o.shape[0], 3), dtype=torch.int32, device=o.device)
-    res = _launch(lib.goblin_trace_bvh8_stats, "trace_bvh8_stats", tables,
-                  o, d, mint, maxt, any_hit, extra=(counts,))
+    res = _launch(getattr(lib, f"goblin_{kernel}_stats"), f"{kernel}_stats",
+                  tables, o, d, mint, maxt, any_hit, extra=(counts,))
     return res, counts
 
 
@@ -544,11 +585,13 @@ def _slab(lo, hi, o, inv, mint, t_best):
 
 
 def trace_plain(scene, o, d, mint, maxt, any_hit: bool = False,
-                stats: bool = False, census: bool = False):
-    """The BVH8 kernel's traversal in plain PyTorch, vectorised over rays.
+                stats: bool = False, census: bool = False,
+                width: int = WIDTH):
+    """The wide kernel's traversal in plain PyTorch, vectorised over rays,
+    on the scene's tables of `width` (8 or 4).
 
     Every ray keeps its own stack in a (R, 64) tensor. Each step pops one
-    entry per live ray: an inner node slab-tests its 8 children and pushes
+    entry per live ray: an inner node slab-tests its children and pushes
     the kept ones far to near (a stable sort on entry distance, the
     kernel's order); a leaf tests its triangles with the kernel's
     arithmetic and accept rule. Steps repeat until every stack is empty.
@@ -560,9 +603,9 @@ def trace_plain(scene, o, d, mint, maxt, any_hit: bool = False,
     """
     if stats and census:
         raise ValueError("trace_plain: stats or census, not both")
-    _check_inputs(scene, _BVH8_TABLES, o, d, mint, maxt)
-    bounds, child, tris = (scene["bvh8_bounds"], scene["bvh8_child"],
-                           scene["tri_rows"])
+    names = wide_tables(width)
+    _check_inputs(scene, names, o, d, mint, maxt)
+    bounds, child, tris = (scene[name] for name in names)
     R = o.shape[0]
     dev = o.device
     inv = 1.0 / torch.where(d == 0.0, _TINY, d)
@@ -571,7 +614,7 @@ def trace_plain(scene, o, d, mint, maxt, any_hit: bool = False,
     work = torch.zeros((R, 4), dtype=torch.int32, device=dev)
     stack = torch.zeros((R, STACK), dtype=torch.int32, device=dev)
     sp = (mint < best.t).to(torch.int64)  # a dead lane skips the root
-    slots = torch.arange(WIDTH, device=dev)
+    slots = torch.arange(width, device=dev)
     while True:
         live = torch.nonzero(sp > 0).squeeze(1)
         if live.numel() == 0:
@@ -585,8 +628,8 @@ def trace_plain(scene, o, d, mint, maxt, any_hit: bool = False,
         if ri.numel():
             counts[ri, 0] += 1
             node = e[inner].long()
-            nb = bounds[node]  # (n, 6, 8)
-            ent = child[node]  # (n, 8)
+            nb = bounds[node]  # (n, 6, width)
+            ent = child[node]  # (n, width)
             if census:
                 work[ri, 0] += 1
                 work[ri, 2] += (ent != EMPTY).sum(dim=1).to(torch.int32)
@@ -603,7 +646,7 @@ def trace_plain(scene, o, d, mint, maxt, any_hit: bool = False,
                 raise RuntimeError("trace_plain: traversal stack overflow")
             # sorted slot j goes to base + n_keep - 1 - j: nearest on top
             pos = base[:, None] + n_keep[:, None] - 1 - slots[None, :]
-            rows = ri[:, None].expand(-1, WIDTH)
+            rows = ri[:, None].expand(-1, width)
             stack[rows[kept], pos[kept]] = ent[kept]
             sp[ri] = base + n_keep
 

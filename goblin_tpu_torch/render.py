@@ -40,8 +40,8 @@ def render_context(path: str, overrides=None, device="cuda",
     """Load and render a scene -> (image (H, W, 3) tensor, meta).
 
     chunk_size: pixels per path-tracing chunk; report(done, total) after
-    each pass or iteration; trace_wide: the trace kernel's tree, 8 (BVH8)
-    or 1 (binary). The splatting methods go to splatting.render_dispatch.
+    each pass or iteration; trace_wide: the trace kernel's tree, 8 (BVH8),
+    4 (BVH4) or 1 (binary). The splatting methods go to splatting.render_dispatch.
     """
     scene, meta = load_scene(path, overrides, device=device,
                              trace_wide=trace_wide)

@@ -1,34 +1,77 @@
-"""Wavefront scene intersection: BVH trace + hit refinement into a
-fragment (port of goblin_tpu/scene/intersect.py for triangle scenes).
+"""Wavefront scene intersection: BVH trace, analytic spheres and disks,
+and hit refinement into a fragment (port of goblin_tpu/scene/intersect.py).
 
-    frag = {hit, t, p, ns, ng, uv, dpdu, dpdv, mat, light, eps, wo,
-            duv4, duv}
+    frag = {is_lens, hit, t, p, ns, ng, uv, dpdu, dpdv, mat, light, eps,
+            wo, duv4, duv}
 
+The triangles go through the BVH; the scene's few spheres and disks are
+tested densely after it, in that order, and a primitive wins a lane only
+where it is strictly nearer than what the lane holds (so of equal t the
+triangle stays, then the sphere, and of two spheres the first).
 Epsilon convention: hit eps = 1e-3 * t (src/GoblinTriangle.cpp:84).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..core import vecmath as vm
+from ..geometry.intersect import BIG_T, intersect_sphere
+from ..integrators.materials import COL_TYPE, gather_material
 from ..ops.trace import TraceResult, trace, trace_bin
+from ..shading.bsdf import MAT_MASK
 
 HIT_EPS_SCALE = 1e-3
 
 
 def trace_rays(scene, meta, o, d, mint, maxt, any_hit=False) -> TraceResult:
-    """Trace a wavefront through the scene's BVH at meta.trace_wide: 8 walks
-    the BVH8 (ops.trace.trace), 1 the binary tree (ops.trace.trace_bin);
-    each the CUDA kernel on the card and its plain version on the CPU."""
-    if meta.trace_wide == 8:
-        fn = trace
-    elif meta.trace_wide == 1:
-        fn = trace_bin
-    else:
-        raise ValueError(f"trace width {meta.trace_wide!r} has no kernel")
-    return fn(scene, o.contiguous(), d.contiguous(), mint.contiguous(),
-              maxt.contiguous(), any_hit=any_hit)
+    """Trace a wavefront through the scene's BVH at meta.trace_wide: 8 and
+    4 walk the collapsed tree of that width (ops.trace.trace), 1 the binary
+    tree (ops.trace.trace_bin); each the CUDA kernel on the card and its
+    plain version on the CPU."""
+    rays = (o.contiguous(), d.contiguous(), mint.contiguous(),
+            maxt.contiguous())
+    if meta.trace_wide in (4, 8):
+        return trace(scene, *rays, any_hit=any_hit, width=meta.trace_wide)
+    if meta.trace_wide == 1:
+        return trace_bin(scene, *rays, any_hit=any_hit)
+    raise ValueError(f"trace width {meta.trace_wide!r} has no kernel")
+
+
+def _sphere_pass(scene, o, d, mint, cur_t):
+    """Dense test against the analytic spheres -> (id, t): id = -1 where no
+    sphere beats cur_t."""
+    best_t = cur_t
+    best = torch.full(o.shape[:-1], -1, dtype=torch.int32, device=o.device)
+    for s in range(scene["sph_center"].shape[0]):  # a few
+        hit, t = intersect_sphere(o, d, scene["sph_center"][s],
+                                  scene["sph_radius"][s], mint, best_t)
+        upd = hit & (t < best_t)
+        best_t = torch.where(upd, t, best_t)
+        best = torch.where(upd, s, best)
+    return best, best_t
+
+
+def _disk_pass(scene, o, d, mint, cur_t):
+    """Dense test against the analytic z = 0 disks in their world-space
+    plane form (reference GoblinDisk.cpp:12-56) -> (id, t)."""
+    best_t = cur_t
+    best = torch.full(o.shape[:-1], -1, dtype=torch.int32, device=o.device)
+    for k in range(scene["dsk_center"].shape[0]):  # a few
+        c = scene["dsk_center"][k]
+        n = scene["dsk_n"][k]
+        r = scene["dsk_radius"][k]
+        den = vm.dot(d, n)
+        ok_den = den.abs() > 1e-7
+        t = vm.dot(c - o, n) / torch.where(ok_den, den, 1.0)
+        q = o + t[..., None] * d - c
+        upd = (ok_den & (vm.squared_length(q) <= r * r) & (t >= mint)
+               & (t < best_t))
+        best_t = torch.where(upd, t, best_t)
+        best = torch.where(upd, k, best)
+    return best, best_t
 
 
 def intersect(scene, meta, o, d, mint, maxt, dxd=None, dyd=None):
@@ -36,12 +79,26 @@ def intersect(scene, meta, o, d, mint, maxt, dxd=None, dyd=None):
 
     The traversal picks the triangle; t and the barycentrics are then
     recomputed by Moller-Trumbore on the gathered triangle (goblin_tpu's
-    differentiable-recompute form, kept so values match). dxd/dyd: camera
+    differentiable-recompute form, kept so values match). Spheres and disks
+    that are nearer take the lane with their own shading frame. dxd/dyd: camera
     ray-differential directions; when given, the fragment carries uv
     differentials duv4 = [dudx, dvdx, dudy, dvdy] and widths duv.
     """
     res = trace_rays(scene, meta, o, d, mint, maxt)
-    hit, tri = res.hit, res.tri
+    hit, tri, t = res.hit, res.tri, res.t
+    sph_hit = dsk_hit = torch.zeros_like(hit)
+    if meta.n_spheres > 0:
+        sph_id, t2 = _sphere_pass(scene, o, d, mint, t)
+        sph_hit = sph_id >= 0
+        hit = hit | sph_hit
+        t = torch.where(sph_hit, t2, t)
+    if meta.n_disks > 0:
+        dsk_id, t3 = _disk_pass(scene, o, d, mint, t)
+        dsk_hit = dsk_id >= 0
+        hit = hit | dsk_hit
+        t = torch.where(dsk_hit, t3, t)
+        sph_hit = sph_hit & ~dsk_hit  # a closer disk wins the lane
+
     tri_c = torch.clamp(tri, min=0).long()
     soup = scene["tri_rows"][tri_c]
     v0, e1, e2 = soup[..., 0:3], soup[..., 3:6], soup[..., 6:9]
@@ -54,8 +111,9 @@ def intersect(scene, meta, o, d, mint, maxt, dxd=None, dyd=None):
     qvec = vm.cross(tvec, e1)
     b2_d = vm.dot(d, qvec) * inv_mt
     t_d = vm.dot(e2, qvec) * inv_mt
-    tri_hit = hit & (det_mt.abs() >= 1e-20)
-    t = torch.where(tri_hit, t_d, res.t)
+    tri_hit = (hit & ~sph_hit & ~dsk_hit & (tri >= 0)
+               & (det_mt.abs() >= 1e-20))
+    t = torch.where(tri_hit, t_d, t)
     b1 = torch.where(tri_hit, b1_d, res.b1)
     b2 = torch.where(tri_hit, b2_d, res.b2)
 
@@ -86,7 +144,73 @@ def intersect(scene, meta, o, d, mint, maxt, dxd=None, dyd=None):
     dpdu = torch.where(degenerate[..., None], fallback_u, dpdu)
     dpdv = torch.where(degenerate[..., None], fallback_v, dpdv)
 
+    mat = scene["tri_mat"][tri_c]
+    light = scene["tri_light"][tri_c]
+    dpdu_deriv = dpdu  # the derivative of p by u, which duv solves with
+
+    if meta.n_spheres > 0:
+        sid = torch.clamp(sph_id, min=0).long()
+        sr = scene["sph_radius"][sid]
+        ns_s = vm.normalize(p - scene["sph_center"][sid], eps=1e-30)
+        # spherical uv (phi / 2 pi, theta / pi), dpdu along the longitude
+        phi = vm.spherical_phi(ns_s)
+        theta = vm.spherical_theta(ns_s)
+        uv_s = torch.stack([phi / (2 * math.pi), theta / math.pi], dim=-1)
+        dpdu_s = torch.stack([-ns_s[..., 1], ns_s[..., 0],
+                              torch.zeros_like(phi)], dim=-1)
+        dpdu_s = torch.where(vm.squared_length(dpdu_s)[..., None] < 1e-12,
+                             vm.coordinate_system(ns_s)[0], dpdu_s)
+        # dpdv along the latitude, scaled to v = theta / pi (reference
+        # src/GoblinSphere.cpp:61-75)
+        st, ct = torch.sin(theta), torch.cos(theta)
+        dpdv_s = (math.pi * sr)[..., None] * torch.stack(
+            [ct * torch.cos(phi), ct * torch.sin(phi), -st], dim=-1)
+        m = sph_hit[..., None]
+        ns = torch.where(m, ns_s, ns)
+        ng = torch.where(m, ns_s, ng)
+        uv = torch.where(m, uv_s, uv)
+        dpdu_deriv = torch.where(m, (2 * math.pi) * sr[..., None] * dpdu_s,
+                                 dpdu)
+        dpdu = torch.where(m, dpdu_s, dpdu)
+        dpdv = torch.where(m, dpdv_s, dpdv)
+        mat = torch.where(sph_hit, scene["sph_mat"][sid], mat)
+        light = torch.where(sph_hit, scene["sph_light"][sid], light)
+
+    is_lens = torch.zeros_like(hit)
+    if meta.n_disks > 0:
+        # the disk's frame (reference GoblinDisk.cpp:31-61): uv = (phi / 2 pi,
+        # r / R), dpdu = [-2 pi y, 2 pi x], dpdv = R [x, y] / r in its local
+        # axes; the normal is its local +z
+        did = torch.clamp(dsk_id, min=0).long()
+        dn = scene["dsk_n"][did]
+        du_ax = scene["dsk_u"][did]
+        dr = scene["dsk_radius"][did]
+        dv_ax = vm.cross(dn, du_ax)
+        q = p - scene["dsk_center"][did]
+        xl = vm.dot(q, du_ax)
+        yl = vm.dot(q, dv_ax)
+        rl = torch.sqrt(torch.clamp(xl * xl + yl * yl, min=1e-20))
+        phi = torch.atan2(yl, xl)
+        phi = torch.where(phi < 0.0, phi + 2.0 * math.pi, phi)
+        uv_d = torch.stack([phi / (2.0 * math.pi),
+                            rl / torch.clamp(dr, min=1e-20)], dim=-1)
+        dpdu_d = (2.0 * math.pi) * (-yl[..., None] * du_ax
+                                    + xl[..., None] * dv_ax)
+        dpdv_d = (dr / rl)[..., None] * (xl[..., None] * du_ax
+                                         + yl[..., None] * dv_ax)
+        m = dsk_hit[..., None]
+        ns = torch.where(m, dn, ns)
+        ng = torch.where(m, dn, ng)
+        uv = torch.where(m, uv_d, uv)
+        dpdu = torch.where(m, dpdu_d, dpdu)
+        dpdv = torch.where(m, dpdv_d, dpdv)
+        dpdu_deriv = torch.where(m, dpdu_d, dpdu_deriv)
+        mat = torch.where(dsk_hit, scene["dsk_mat"][did], mat)
+        light = torch.where(dsk_hit, scene["dsk_light"][did], light)
+        is_lens = dsk_hit & scene["dsk_lens"][did]
+
     frag = {
+        "is_lens": is_lens,
         "hit": hit,
         "t": t,
         "p": p,
@@ -95,14 +219,14 @@ def intersect(scene, meta, o, d, mint, maxt, dxd=None, dyd=None):
         "uv": uv,
         "dpdu": dpdu,
         "dpdv": dpdv,
-        "mat": torch.where(hit, scene["tri_mat"][tri_c], 0),
-        "light": torch.where(hit, scene["tri_light"][tri_c], -1),
+        "mat": torch.where(hit, mat, 0),
+        "light": torch.where(hit, light, -1),
         "eps": HIT_EPS_SCALE * torch.where(hit, t, 1.0),
         "wo": -d,
     }
     if dxd is not None:
         frag["duv4"], frag["duv"] = _uv_differentials(
-            o, dxd, dyd, p, ng, dpdu, dpdv, hit
+            o, dxd, dyd, p, ng, dpdu_deriv, dpdv, hit
         )
     else:
         frag["duv4"] = torch.zeros(t.shape + (4,), dtype=t.dtype, device=t.device)
@@ -153,14 +277,49 @@ def _uv_differentials(o, dxd, dyd, p, n, dpdu, dpdv, hit):
 
 
 def occluded(scene, meta, o, d, mint, maxt):
-    """Any-hit shadow query: True where the segment [mint, maxt] is
-    blocked."""
-    return trace_rays(scene, meta, o, d, mint, maxt, any_hit=True).hit
+    """Any-hit shadow query over triangles, spheres and disks (every disk,
+    the camera lens included, as in goblin_tpu): True where the segment
+    [mint, maxt] is blocked."""
+    occ = trace_rays(scene, meta, o, d, mint, maxt, any_hit=True).hit
+    if meta.n_spheres > 0:
+        occ = occ | (_sphere_pass(scene, o, d, mint, maxt)[0] >= 0)
+    if meta.n_disks > 0:
+        occ = occ | (_disk_pass(scene, o, d, mint, maxt)[0] >= 0)
+    return occ
 
 
-def occluded_attenuated(scene, meta, o, d, mint, maxt):
-    """Shadow query with its attenuation (R, 3). Without mask (null-lobe)
-    materials, which this port does not load yet, nothing attenuates: the
-    plain any-hit query and a transmittance of one."""
-    occ = occluded(scene, meta, o, d, mint, maxt)
-    return occ, torch.ones(o.shape[:-1] + (3,), dtype=o.dtype, device=o.device)
+def occluded_attenuated(scene, meta, o, d, mint, maxt, max_punch: int = 4):
+    """Shadow query with punch-through of null-capable (mask) surfaces,
+    which consumes no path depth: a mask surface never occludes, it
+    attenuates by its null lobe (1 - alpha) * transparent_color, while any
+    other hit blocks (reference occluded(ray, &isOpaque) and
+    PathTracer::evalAttenuation, src/GoblinPathtracer.cpp:5-48, 95-113).
+    Returns (occ, tr) with tr (R, 3).
+
+    A scene without mask materials takes the plain any-hit query and a
+    transmittance of one. With them, each of up to max_punch rounds is a
+    closest-hit intersect of the lanes still open, from just past the
+    last mask surface; a lane still open after the last round counts as
+    occluded (the reference loops without bound)."""
+    tr = torch.ones(o.shape[:-1] + (3,), dtype=o.dtype, device=o.device)
+    if not meta.has_null:
+        return occluded(scene, meta, o, d, mint, maxt), tr
+    occ = torch.zeros_like(mint, dtype=torch.bool)
+    done = maxt <= mint  # dead lanes start done
+    cur_mint = mint
+    for _ in range(max_punch):
+        frag = intersect(scene, meta, o, d, torch.where(done, BIG_T, cur_mint),
+                         torch.where(done, 0.0, maxt))
+        hit = frag["hit"] & ~done
+        is_mask = scene["mat_rows"][frag["mat"], COL_TYPE] == MAT_MASK
+        blocked = hit & ~is_mask
+        punch = hit & is_mask
+        occ = occ | blocked
+        mat = gather_material(scene, meta, frag)
+        tr = torch.where(punch[..., None],
+                         tr * (1.0 - mat["mask_alpha"])[..., None] * mat["c1"],
+                         tr)
+        cur_mint = torch.where(punch, frag["t"] + frag["eps"], cur_mint)
+        done = (done | blocked | ~frag["hit"]
+                | (punch & (tr <= 0.0).all(dim=-1)))
+    return occ | ~done, tr

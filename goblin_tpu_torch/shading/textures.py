@@ -1,6 +1,7 @@
 """Constant textures (port of goblin_tpu/shading/textures.py's
 TextureSystem for TEX_CONSTANT; image, checkerboard and scale textures
-are refused by the loader)."""
+are refused by the loader). Colour and float textures are two systems of
+the same kind; a float texture holds its value in all three channels."""
 
 from __future__ import annotations
 

@@ -90,8 +90,11 @@ def walk_light_paths(scene, meta, path_ids, s_idx, seed, max_path_length):
             "wo_prev": frag["wo"],
             "tp": torch.where(valid[:, None], tp, 0.0),
             "valid": valid,
+            "is_lens": frag["is_lens"] & valid,
         })
-        mat = gather_material(scene, meta, frag)
+        mat = gather_material(
+            scene, meta, frag,
+            u_mask=u(b, DIM_BC + 1) if meta.has_null else None)
         bs = bx.bsdf_sample(mat, frag["ns"], frag["dpdu"], frag["wo"],
                             u(b, DIM_B1), u(b, DIM_B2), u(b, DIM_BC),
                             bx.BSDF_ALL, mode=bx.MODE_RADIANCE)

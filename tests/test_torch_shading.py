@@ -296,7 +296,7 @@ def _light_tables():
               cos_theta_max=float(np.cos(np.radians(10.0))),
               cos_falloff_start=float(np.cos(np.radians(5.0))))
     jlt = jl.bake_lights(jb_, [], [], np.zeros(3, np.float32), 7.5)
-    tlt = tl.bake_lights(tb_, np.zeros(3, np.float32), 7.5, "cpu")
+    tlt = tl.bake_lights(tb_, [], [], np.zeros(3, np.float32), 7.5, "cpu")
     return jlt, tlt
 
 
@@ -315,7 +315,9 @@ def test_lights_match():
     ref = jl.sample_li(jlt, {"em_rows": jnp.zeros((0, 12))}, jid,
                        jnp.asarray(p), jnp.asarray(eps), jnp.asarray(u),
                        jnp.asarray(u))
-    got = tl.sample_li(tlt, tid, _t(p), _t(eps))
+    # delta lights read no samples: the path tracer passes None for them
+    got = tl.sample_li(tlt, {"em_rows": torch.zeros((0, 12))}, tid, _t(p),
+                       _t(eps), None, None)
     for k in ("Li", "wi", "pdf", "shadow_maxt", "dist"):
         np.testing.assert_allclose(_np(got[k]), np.asarray(ref[k]), **TOL,
                                    err_msg=k)

@@ -24,6 +24,7 @@ from goblin_tpu_torch.scene import loader as tloader
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUNNY = os.path.join(REPO, "examples", "bunny.json")
+STUDIO = os.path.join(REPO, "examples", "bunny_studio.json")
 
 
 def _bunny_copy(tmp_path, x_res, y_res, spp, depth, **edits):
@@ -92,18 +93,29 @@ def _two_triangle_scene(tmp_path):
 
 def test_port_imports_neither_jax_nor_goblin_tpu(tmp_path):
     """A fresh interpreter loads and renders a two-triangle scene on the CPU
-    with goblin_tpu_torch, by path tracing and by SPPM at both trace
-    widths, and never imports jax or goblin_tpu."""
+    with goblin_tpu_torch, by path tracing and by SPPM at the trace widths,
+    then the studio scene (every feature of its slice) at width 4, and
+    never imports jax or goblin_tpu."""
     scene = _two_triangle_scene(tmp_path)
     script = textwrap.dedent(f"""
-        import sys
-        from goblin_tpu_torch.render import render_context
-        for ovr, wide in (({{}}, 8), ({{"render_method": "sppm"}}, 8),
+        import dataclasses, sys
+        from goblin_tpu_torch.integrators import common
+        from goblin_tpu_torch.render import make_li, render_context
+        from goblin_tpu_torch.scene.loader import load_scene
+        for ovr, wide in (({{}}, 8), ({{}}, 4), ({{"render_method": "sppm"}}, 8),
                           ({{"render_method": "sppm"}}, 1)):
             img, meta = render_context({scene!r}, ovr, device="cpu",
                                        trace_wide=wide)
             assert tuple(img.shape) == (4, 4, 3), img.shape
             assert bool(img.isfinite().all()) and float(img.mean()) > 0
+        scene, meta = load_scene({STUDIO!r}, {{"sample_per_pixel": 1}},
+                                 device="cpu", trace_wide=4)
+        film = dataclasses.replace(meta.camera.film, x_res=16, y_res=12)
+        meta.camera = dataclasses.replace(meta.camera, film=film)
+        img = common.render(scene, meta, make_li(meta))
+        assert tuple(img.shape) == (12, 16, 3), img.shape
+        assert bool(img.isfinite().all()) and float(img.mean()) > 0
+        assert meta.trace_wide == 4 and meta.has_null and meta.n_spheres == 2
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "goblin_tpu" or m.startswith("goblin_tpu.")]
         assert not bad, bad
@@ -136,23 +148,20 @@ def _with(doc, section, entry):
 
 
 UNSUPPORTED = {
-    "sphere primitive": _with(_with(
-        _with(TWO_TRIANGLES, "geometries",
-              {"name": "s", "type": "sphere", "radius": 0.5}),
-        "primitives", {"type": "model", "name": "sm", "geometry": "s",
-                       "material": "m"}),
-        "primitives", {"type": "instance", "name": "s1", "model": "sm"}),
-    "area light": _with(TWO_TRIANGLES, "lights",
-                        {"type": "area", "geometry": "quad"}),
+    "checkerboard texture": _with(TWO_TRIANGLES, "textures",
+                                  {"name": "c", "type": "checkerboard"}),
+    "scale texture": _with(TWO_TRIANGLES, "textures",
+                           {"name": "s", "type": "scale"}),
     "image texture": _with(TWO_TRIANGLES, "textures",
                            {"name": "i", "type": "image", "file": "x.exr"}),
-    "blinn material": _with(TWO_TRIANGLES, "materials",
-                            {"name": "b", "type": "blinn"}),
-    "mask material": _with(TWO_TRIANGLES, "materials",
-                           {"name": "k", "type": "mask", "material": "m"}),
+    "bump map": _with(TWO_TRIANGLES, "materials",
+                      {"name": "b", "type": "lambert", "Kd": "w",
+                       "bumpmap": "w"}),
+    "subsurface material": _with(TWO_TRIANGLES, "materials",
+                                 {"name": "k", "type": "subsurface"}),
     "volume": dict(TWO_TRIANGLES, volume={"type": "homogeneous"}),
-    "lens camera": dict(TWO_TRIANGLES, camera=dict(
-        TWO_TRIANGLES["camera"], lens_radius=0.1)),
+    "image-based light": _with(TWO_TRIANGLES, "lights",
+                               {"type": "ibl", "file": "x.exr"}),
 }
 
 

@@ -171,7 +171,7 @@ def _light_tables():
               cos_falloff_start=float(np.cos(np.radians(5.0))))
     wc = np.float32([0.2, -0.4, 0.1])
     return (jl.bake_lights(jb_, [], [], wc, 7.5),
-            tl.bake_lights(tb_, wc, 7.5, "cpu"))
+            tl.bake_lights(tb_, [], [], wc, 7.5, "cpu"))
 
 
 def test_emission_matches_for_point_spot_directional():
@@ -202,9 +202,12 @@ def test_emission_matches_for_point_spot_directional():
             _np(tl.eval_emission(tlt, _t(lid), got["n"], _t(w))),
             np.asarray(jl.eval_emission(jlt, jnp.asarray(lid), ref["n"],
                                         jnp.asarray(w))), **TOL)
+    # a table of delta lights never reads the emissive-triangle rows
+    again = tl.sample_emission(tlt, {"em_rows": torch.zeros((1, 12))},
+                               _t(lid), *(_t(x) for x in u))
+    np.testing.assert_array_equal(_np(again["p"]), _np(got["p"]))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.sample_emission(tlt, {"em_rows": torch.zeros((1, 12))}, _t(lid),
-                           *(_t(x) for x in u))
+        tl.eval_emission(tlt, _t(lid), got["n"], _t(wo), env_le=_t(wo))
 
 
 def _mats(rng, n):

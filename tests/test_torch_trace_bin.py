@@ -145,7 +145,7 @@ def test_binary_tables_equal_pack_scene(monkeypatch):
 
 def test_bake_refuses_widths_and_deep_binary_trees(monkeypatch):
     with pytest.raises(ValueError, match="trace_wide"):
-        tloader.load_scene(BUNNY, device="cpu", trace_wide=4)
+        tloader.load_scene(BUNNY, device="cpu", trace_wide=2)
     monkeypatch.setattr(tbake, "BIN_STACK", 8)  # bunny needs 14 + 1
     with pytest.raises(ValueError, match="stack"):
         tloader.load_scene(BUNNY, device="cpu", trace_wide=1)

@@ -1,5 +1,6 @@
-"""The CUDA trace kernels (BVH8, its stats instance, and the binary BVH)
-against their plain PyTorch versions, on the card.
+"""The CUDA trace kernels (the wide kernel at widths 8 and 4, their stats
+instances, and the binary BVH) against their plain PyTorch versions, on the
+card.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. This file imports
 neither JAX nor goblin_tpu, so it runs on a machine without them:
@@ -34,7 +35,7 @@ def cuda():
 
 
 def _scene(device, seed=3, n_tri=600, n_rays=1 << 14, max_leaf=8):
-    """Random triangles and rays, with the BVH8 and the binary tables."""
+    """Random triangles and rays, with the BVH8, BVH4 and binary tables."""
     rng = np.random.default_rng(seed)
     p0 = (rng.uniform(-1, 1, (n_tri, 3)) * 3).astype(np.float32)
     p1 = p0 + rng.normal(size=(n_tri, 3)).astype(np.float32) * 0.4
@@ -46,9 +47,12 @@ def _scene(device, seed=3, n_tri=600, n_rays=1 << 14, max_leaf=8):
                           axis=-1).astype(np.float32)
     soup[order < 0] = 0.0
     nb, nc, _ = tt.collapse8(tree.bounds, tree.meta)
+    nb4, nc4, depth4 = tt.collapse_wide(tree.bounds, tree.meta, 4)
+    tt.check_wide_depth(depth4, 4)
     bb, bm = tt.bin_tables(tree.bounds, tree.meta)
-    tables = {"bvh8_bounds": nb, "bvh8_child": nc, "bin_bounds": bb,
-              "bin_meta": bm, "tri_rows": tt.tri_rows(soup)}
+    tables = {"bvh8_bounds": nb, "bvh8_child": nc, "bvh4_bounds": nb4,
+              "bvh4_child": nc4, "bin_bounds": bb, "bin_meta": bm,
+              "tri_rows": tt.tri_rows(soup)}
     scene = {k: torch.as_tensor(v, device=device) for k, v in tables.items()}
     o = (rng.uniform(-1, 1, (n_rays, 3)) * 6).astype(np.float32)
     d = rng.normal(size=(n_rays, 3)).astype(np.float32) * 1.5 - o
@@ -67,6 +71,7 @@ def test_kernel_matches_plain(cuda, any_hit):
     got = tt.trace(scene, *rays, any_hit=any_hit)
     torch.cuda.synchronize()
     assert tt.launches == {"trace_bvh8": 1, "trace_bvh8_stats": 0,
+                           "trace_bvh4": 0, "trace_bvh4_stats": 0,
                            "trace_bvh2": 0}
     ref = tt.trace_plain(scene, *rays, any_hit=any_hit)
     h = ref.hit.cpu().numpy()
@@ -143,6 +148,62 @@ def test_kernels_bit_equal_to_plain(cuda, any_hit, max_leaf):
     assert torch.equal(counts[:, 2], counts[:, 0] + counts[:, 1])
 
 
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("max_leaf", [8, 32])
+def test_w4_kernel_bit_equal_to_plain(cuda, any_hit, max_leaf):
+    """The width-4 instance (4 lanes a ray, 4 triangles a round) against
+    trace_plain at width 4, bit for bit, on a ragged ray count; its stats
+    instance's counts on every ray; and the same hits as width 8."""
+    scene, rays = _scene(cuda, n_rays=(1 << 14) + 5, max_leaf=max_leaf)
+    tt.reset_launches()
+    k4 = tt.trace(scene, *rays, any_hit=any_hit, width=4)
+    ks, counts = tt.trace(scene, *rays, any_hit=any_hit, stats=True, width=4)
+    torch.cuda.synchronize()
+    assert (tt.launches["trace_bvh4"], tt.launches["trace_bvh4_stats"],
+            tt.launches["trace_bvh8"]) == (1, 1, 0)
+    p4, ref_counts = tt.trace_plain(scene, *rays, any_hit=any_hit, stats=True,
+                                    width=4)
+    assert int(p4.hit.sum()) > 1000
+    _assert_bit_equal(k4, p4, any_hit)
+    _assert_bit_equal(ks, p4, any_hit)
+    assert torch.equal(counts, ref_counts)
+    assert torch.equal(counts[:, 2], counts[:, 0] + counts[:, 1])
+    k8 = tt.trace(scene, *rays, any_hit=any_hit)
+    assert torch.equal(k8.hit, k4.hit)
+    if not any_hit:
+        assert (k8.tri == k4.tri).float().mean().item() >= 0.99
+
+
+def test_w4_any_hit_exits_early(cuda):
+    """An any-hit walk ends at its first accepted triangle: on the rays
+    that hit it makes no more visits than the closest-hit walk, and fewer
+    in total."""
+    scene, rays = _scene(cuda)
+    (_, closest), (res, first) = (
+        tt.trace(scene, *rays, any_hit=a, stats=True, width=4)
+        for a in (False, True))
+    torch.cuda.synchronize()
+    h = res.hit
+    assert int(h.sum()) > 1000
+    assert bool((first[h, 2] <= closest[h, 2]).all())
+    assert int(first[h, 2].sum()) < int(closest[h, 2].sum())
+    assert torch.equal(first[~h], closest[~h])
+
+
+def test_w4_persistent_blocks_and_deep_tree(cuda):
+    """Blocks hold 32 rays at width 4 (16 at width 8), and a tree deeper
+    than the width-8 kernel's 9 levels walks at width 4."""
+    assert tt.launch_blocks("trace_bvh4", 1, 0) == 1
+    assert tt.launch_blocks("trace_bvh4", 64, 0) == 2
+    assert tt.launch_blocks("trace_bvh8", 64, 0) == 4
+    assert 0 < tt.launch_blocks("trace_bvh4", 300_000, 0) \
+        == tt.launch_blocks("trace_bvh4", 3_000_000, 0)
+    scene, rays = _scene(cuda, n_tri=60_000, n_rays=100_000, max_leaf=8)
+    got = tt.trace(scene, *rays, width=4)
+    torch.cuda.synchronize()
+    _assert_bit_equal(got, tt.trace_plain(scene, *rays, width=4), False)
+
+
 def test_persistent_blocks_draw_all_rays(cuda):
     """More rays than the resident blocks hold at once (ten times the rays
     get no more blocks): every warp draws several batches from the counter,
@@ -186,15 +247,17 @@ def test_kernel_checks_inputs(cuda):
         tt.trace(scene, o[::2], d[::2], mint[::2], maxt[::2][:16])
 
 
-def test_bunny_render_on_card_matches_cpu(cuda):
-    """48 x 36 bunny, 1 spp, depth 5: the kernel path on the card against
-    the plain path on the CPU, with goblin_tpu's slice bar."""
+@pytest.mark.parametrize("name,wide", [("bunny", 8), ("bunny_studio", 4)])
+def test_bunny_render_on_card_matches_cpu(cuda, name, wide):
+    """48 x 36, 1 spp, depth 5: the kernel path on the card against the
+    plain path on the CPU, with goblin_tpu's slice bar; bunny.json at width
+    8 and the studio scene at width 4."""
     ovr = {"render_method": "path_tracing", "max_ray_depth": 5,
            "sample_per_pixel": 1}
     images = []
     for device in ("cpu", cuda):
-        scene, meta = load_scene(os.path.join(REPO, "examples", "bunny.json"),
-                                 ovr, device=device)
+        scene, meta = load_scene(os.path.join(REPO, "examples", f"{name}.json"),
+                                 ovr, device=device, trace_wide=wide)
         meta.camera = dataclasses.replace(meta.camera, film=dataclasses.replace(
             meta.camera.film, x_res=48, y_res=36))
         images.append(common.render(scene, meta, make_li(meta)).cpu().numpy())

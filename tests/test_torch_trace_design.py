@@ -28,7 +28,8 @@ LEVELS = tt.WIDE_LEVELS
 
 
 def _slab(lo, hi, o, inv, mint, t_best):
-    """csrc/trace_common.cuh slab_test for 8 boxes at once: (enters, tn)."""
+    """csrc/trace_common.cuh slab_test for a node's boxes at once: (enters,
+    tn)."""
     t0 = (lo - o[:, None]) * inv[:, None]
     t1 = (hi - o[:, None]) * inv[:, None]
     near = np.minimum(t0, t1)
@@ -41,7 +42,7 @@ def _slab(lo, hi, o, inv, mint, t_best):
 
 def _visit_inner(bounds, child, e, o, inv, mint, t_best):
     """-> the packed list: four bits a live child, nearest first, slot + 1."""
-    nb = bounds[e]  # (6, 8)
+    nb = bounds[e]  # (6, width)
     enters, tn = _slab(nb[0:3], nb[3:6], o, inv, mint, t_best)
     key = np.where((child[e] != tt.EMPTY) & enters, tn, F(np.inf))
     order = np.argsort(key, kind="stable")
@@ -89,11 +90,11 @@ def _leaf(tris, first, count, o, d, mint, t_best, any_hit):
     return int(k), t[k], b1[k], b2[k]
 
 
-def emulate_walk(scene, o, d, mint, maxt, any_hit):
-    """One ray through trace_bvh8.cu's walk. -> (hit, t, tri, b1, b2,
-    inner visits, leaf visits)."""
-    bounds, child, tris = (scene[k].numpy() for k in
-                           ("bvh8_bounds", "bvh8_child", "tri_rows"))
+def emulate_walk(scene, o, d, mint, maxt, any_hit, width=8):
+    """One ray through trace_bvh8.cu's walk at `width` (8 or 4). -> (hit, t,
+    tri, b1, b2, inner visits, leaf visits)."""
+    bounds, child, tris = (scene[k].numpy() for k in tt.wide_tables(width))
+    levels = tt.wide_levels(width)
     with np.errstate(divide="ignore"):
         inv = F(1.0) / np.where(d == 0, F(1e-30), d)
     t_best = min(maxt, F(tt.BIG_T))
@@ -119,7 +120,7 @@ def emulate_walk(scene, o, d, mint, maxt, any_hit):
             packed = _visit_inner(bounds, child, e, o, inv, mint, t_best)
             if packed:
                 if top_list:
-                    assert len(stack) < LEVELS - 1, "stack overflow"
+                    assert len(stack) < levels - 1, "stack overflow"
                     stack.append((top_node, top_list))
                 top_node, top_list = e, packed
         else:
@@ -138,15 +139,15 @@ def emulate_walk(scene, o, d, mint, maxt, any_hit):
     return hit, (t_best if hit else F(tt.BIG_T)), tri, b1, b2, n_inner, n_leaf
 
 
-def _check_against_plain(scene, rays, any_hit):
+def _check_against_plain(scene, rays, any_hit, width=8):
     o, d, mint, maxt = rays
     ref, counts = tt.trace_plain(
         scene, *(torch.as_tensor(a) for a in rays), any_hit=any_hit,
-        stats=True)
+        stats=True, width=width)
     n_hit = 0
     for i in range(o.shape[0]):
         hit, t, tri, b1, b2, n_inner, n_leaf = emulate_walk(
-            scene, o[i], d[i], mint[i], maxt[i], any_hit)
+            scene, o[i], d[i], mint[i], maxt[i], any_hit, width)
         assert hit == bool(ref.hit[i]), i
         assert [n_inner, n_leaf, n_inner + n_leaf] == counts[i].tolist(), i
         if not any_hit or hit:
@@ -156,9 +157,9 @@ def _check_against_plain(scene, rays, any_hit):
     return n_hit
 
 
-def _bunny_rays():
+def _bunny_rays(width=8):
     scene, meta = load_scene(BUNNY, {"render_method": "path_tracing"},
-                             device="cpu")
+                             device="cpu", trace_wide=width)
     cam = dataclasses.replace(meta.camera, film=dataclasses.replace(
         meta.camera.film, x_res=24, y_res=18))
     ys, xs = np.mgrid[0:18, 0:24]
@@ -194,17 +195,17 @@ def test_level_stack_walk_matches_plain_on_bunny(bunny, any_hit):
     assert _check_against_plain(scene, rays, any_hit) > 100
 
 
-def _soup_scene(p0, p1, p2, max_leaf):
+def _soup_scene(p0, p1, p2, max_leaf, width=8):
     tree = align_leaves(build_bvh(p0, p1, p2, max_leaf=max_leaf), align=8)
     order = tree.order
     safe = np.where(order < 0, 0, order)
     soup = np.concatenate([p0[safe], p1[safe] - p0[safe], p2[safe] - p0[safe]],
                           axis=-1).astype(F)
     soup[order < 0] = 0.0
-    nb, nc, depth = tt.collapse8(tree.bounds, tree.meta)
+    nb, nc, depth = tt.collapse_wide(tree.bounds, tree.meta, width)
     bb, bm = tt.bin_tables(tree.bounds, tree.meta)
-    tables = {"bvh8_bounds": nb, "bvh8_child": nc, "bin_bounds": bb,
-              "bin_meta": bm, "tri_rows": tt.tri_rows(soup)}
+    tables = {f"bvh{width}_bounds": nb, f"bvh{width}_child": nc,
+              "bin_bounds": bb, "bin_meta": bm, "tri_rows": tt.tri_rows(soup)}
     return {k: torch.as_tensor(v) for k, v in tables.items()}, depth
 
 
