@@ -51,6 +51,26 @@ Phases, each printed on its own lines, and any failure exits non-zero:
      width 4: a finite non-black image and 1 + 2 x 5 + 6 x 5 = 41 launches
      an iteration (SPPM's shadow rays take the any-hit query, masks or
      not); a 48 x 36 render on the card against the CPU's.
+ 13. examples/bunny_gallery.json (the studio scene under the texture chain:
+     a filtered checkerboard over a scale node, an EWA image under the
+     spherical mapping, a trilinear alpha image, a bump map and a normal
+     map) with path_tracing at 512 x 384, 4 spp, depth 5 through
+     render_context at trace width 8 and 4 in turns: 21 launches a chunk,
+     252 a render, as the studio scene; the widths' images agree; a 48 x 36
+     render on the card against the CPU's;
+ 14. the gallery scene under ao, 1 spp, 25 directions: 2 launches a chunk
+     (65,536 closest-hit rays, then one any-hit launch of 1,638,400), 6 a
+     render; that any-hit launch against its plain version, in chunks and
+     whole, with times; 48 x 36 card against CPU;
+ 15. the gallery scene under whitted, 1 spp, max_ray_depth 3 (15 nodes;
+     depth 5's 63 nodes take a minute a pass): a node's 3 lights x (4
+     punch-through rounds + 1 BSDF-side intersect) and the trace that made
+     it, 240 launches a chunk, 720 a render; 48 x 36 card against CPU;
+ 16. the gallery scene under light_tracing (t1), 1 spp: 12 chunks of 16,384
+     paths x (4 walk traces + 5 camera connections) = 108 launches; 48 x 36
+     card against CPU (the film scatter adds in another order on the card,
+     within the image bar), and the t0 and s1 estimators against t1 there
+     (image means within 30% / 10%).
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Each kernel's row carries its time (CUDA events over launches queued behind
 a spinning kernel, so the host's launch rate stays out of it), its plain
@@ -73,6 +93,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 BUNNY = os.path.join(REPO, "examples", "bunny.json")
 STUDIO = os.path.join(REPO, "examples", "bunny_studio.json")
+GALLERY = os.path.join(REPO, "examples", "bunny_gallery.json")
 SETTINGS = {"render_method": "path_tracing", "max_ray_depth": 5,
             "sample_per_pixel": 4}
 CHUNK = 1 << 16
@@ -95,7 +116,15 @@ STUDIO_SPPM_ITERATIONS = 2
 # closest-hit rounds of a shadow ray where the scene has a mask material
 # (scene/intersect.py occluded_attenuated's max_punch)
 MAX_PUNCH = 4
-
+# phases 14-16 on the gallery scene
+AO_DIRECTIONS = 25
+WHITTED_DEPTH = 3
+LT_CHUNK = 1 << 14
+# phase 16's estimator cross-check at 48 x 36: paths of each estimator (few
+# light paths find the 2 cm lens, so t0 takes the most) in chunks of
+LT_CHECK_SPP = {"t1": 64, "s1": 64, "t0": 2400}
+LT_CHECK_CHUNK = 1 << 18
+LT_CHECK_RTOL = {"s1": 0.10, "t0": 0.30}
 
 
 class SmokeFailure(Exception):
@@ -313,34 +342,6 @@ def compare_kernel(scene, meta):
         "ms": ms["primary/closest"],
         "plain_ms": plain_ms["primary/closest"],
     }
-
-
-def reference_check(path=BUNNY, wide=8):
-    """Phases 4 and 11: a small path-traced render on the card against the
-    plain CPU path."""
-    import numpy as np
-
-    from goblin_tpu_torch.integrators import common
-    from goblin_tpu_torch.render import make_li
-    from goblin_tpu_torch.scene.loader import load_scene
-
-    ovr = dict(SETTINGS, sample_per_pixel=1)
-    images = []
-    for device in ("cpu", "cuda"):
-        scene, meta = load_scene(path, ovr, device=device, trace_wide=wide)
-        meta.camera = dataclasses.replace(
-            meta.camera,
-            film=dataclasses.replace(meta.camera.film, x_res=48, y_res=36))
-        images.append(common.render(scene, meta, make_li(meta)).cpu().numpy())
-    cpu, gpu = images
-    close = (np.abs(gpu - cpu) <= 1e-4 + 1e-3 * np.abs(cpu)).all(axis=-1)
-    rel_mean = abs(gpu.mean() - cpu.mean()) / cpu.mean()
-    print(f"  48x36 1 spp, width {wide}: pixels within 1e-4 + 1e-3 rel "
-          f"{close.mean():.4f}, mean card {gpu.mean():.6f} cpu {cpu.mean():.6f} "
-          f"(rel diff {rel_mean:.2e})", flush=True)
-    check(np.isfinite(gpu).all(), "card image has non-finite pixels")
-    check(close.mean() >= 0.99, "card and CPU images disagree")
-    check(rel_mean <= 1e-3, "card and CPU image means disagree")
 
 
 def main_path():
@@ -687,34 +688,6 @@ def sppm_main_path():
     return counts
 
 
-def sppm_reference_check(path=BUNNY, wide=1):
-    """Phases 9 and 12: a small SPPM render on the card against the plain
-    CPU path."""
-    import numpy as np
-
-    from goblin_tpu_torch.integrators.sppm import render_sppm
-    from goblin_tpu_torch.scene.loader import load_scene
-
-    ovr = {"render_method": "sppm", "sample_per_pixel": 2, "max_ray_depth": 5}
-    images = []
-    for device in ("cpu", "cuda"):
-        scene, meta = load_scene(path, ovr, device=device, trace_wide=wide)
-        meta.camera = dataclasses.replace(
-            meta.camera,
-            film=dataclasses.replace(meta.camera.film, x_res=48, y_res=36))
-        images.append(render_sppm(scene, meta).cpu().numpy())
-    cpu, gpu = images
-    close = (np.abs(gpu - cpu) <= 1e-4 + 1e-3 * np.abs(cpu)).all(axis=-1)
-    rel_mean = abs(gpu.mean() - cpu.mean()) / cpu.mean()
-    print(f"  48x36 2 iterations depth 5, width {wide}: pixels within 1e-4 + "
-          f"1e-3 rel {close.mean():.4f}, mean card {gpu.mean():.6f} cpu "
-          f"{cpu.mean():.6f} (rel diff {rel_mean:.2e})", flush=True)
-    check(np.isfinite(gpu).all(), "card SPPM image has non-finite pixels")
-    check(cpu.mean() > 0, "CPU SPPM image is black")
-    check(close.mean() >= 0.99, "card and CPU SPPM images disagree")
-    check(rel_mean <= 1e-3, "card and CPU SPPM image means disagree")
-
-
 def compare_width4(label, path):
     """Phase 10 for one scene: the width-4 instance against trace_plain at
     width 4 and against the width-8 instance on the scene's wavefronts, then
@@ -960,6 +933,284 @@ def studio_sppm_path(wide=4):
     return launches, float(its[-1])
 
 
+def small_film(meta, x_res=48, y_res=36):
+    meta.camera = dataclasses.replace(
+        meta.camera,
+        film=dataclasses.replace(meta.camera.film, x_res=x_res, y_res=y_res))
+
+
+def render_loaded(scene, meta, **kw):
+    """What render_context does with a loaded scene: the splatting methods
+    through splatting.render_dispatch, the others through common.render."""
+    from goblin_tpu_torch import render, splatting
+    from goblin_tpu_torch.integrators import common
+
+    method = meta.settings["render_method"]
+    if method in render.SPLAT_METHODS:
+        return splatting.render_dispatch(scene, meta, method)
+    return common.render(scene, meta, render.make_li(meta), **kw)
+
+
+PT_CHECK = dict(SETTINGS, sample_per_pixel=1)
+SPPM_CHECK = {"render_method": "sppm", "sample_per_pixel": 2,
+              "max_ray_depth": 5}
+
+
+def reference_check(overrides, path=GALLERY, wide=8):
+    """Phases 4, 9 and 11-16: a 48 x 36 render of overrides' method on the
+    card against the plain CPU path, within the image bar."""
+    import numpy as np
+
+    from goblin_tpu_torch.scene.loader import load_scene
+
+    images = []
+    for device in ("cpu", "cuda"):
+        scene, meta = load_scene(path, overrides, device=device,
+                                 trace_wide=wide)
+        small_film(meta)
+        images.append(render_loaded(scene, meta).cpu().numpy())
+    cpu, gpu = images
+    close = (np.abs(gpu - cpu) <= 1e-4 + 1e-3 * np.abs(cpu)).all(axis=-1)
+    rel_mean = abs(gpu.mean() - cpu.mean()) / cpu.mean()
+    print(f"  48x36 {overrides}, width {wide}: pixels within 1e-4 + 1e-3 rel "
+          f"{close.mean():.4f}, mean card {gpu.mean():.6f} cpu "
+          f"{cpu.mean():.6f} (rel diff {rel_mean:.2e})", flush=True)
+    check(np.isfinite(gpu).all(), "card image has non-finite pixels")
+    check(cpu.mean() > 0, "CPU image is black")
+    check(close.mean() >= 0.99, f"{overrides}: card and CPU images disagree")
+    check(rel_mean <= 1e-3, f"{overrides}: card and CPU image means disagree")
+
+
+def counted_render(path, overrides, wide=8, **kw):
+    """One render through render_context with the launch counters read
+    around it -> (image, meta, launches, seconds of each report)."""
+    import numpy as np
+    import torch
+
+    from goblin_tpu_torch.ops import trace as tt
+    from goblin_tpu_torch.render import render_context
+
+    marks = []
+
+    def report(done, total):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    tt.reset_launches()
+    t0 = time.perf_counter()
+    img, meta = render_context(path, overrides, device="cuda", report=report,
+                               trace_wide=wide, **kw)
+    torch.cuda.synchronize()
+    launches = dict(tt.launches)
+    img = img.cpu().numpy()
+    spec = meta.camera.film
+    check(img.shape == (spec.y_res, spec.x_res, 3), f"image shape {img.shape}")
+    check(np.isfinite(img).all(), f"{overrides}: non-finite pixels")
+    check(img.mean() > 0, f"{overrides}: image is black")
+    return img, meta, launches, np.diff([t0] + marks)
+
+
+def check_gallery(meta):
+    check(meta.has_perturb and meta.has_null and not meta.all_delta_lights
+          and not meta.camera.is_delta and meta.n_lights == 3
+          and meta.light_sample_nums == (1, 1, 1)
+          and meta.material_kinds == (0, 1, 2, 3, 5),
+          "the gallery scene lost a feature")
+
+
+def gallery_main_path():
+    """Phase 13: the gallery scene's path tracing through render_context at
+    trace widths 8 and 4, in turns. Returns {width: launches}."""
+    import numpy as np
+
+    images, counts, steady = {}, {}, {4: [], 8: []}
+    for turn, wide in enumerate((8, 4, 4, 8)):
+        img, meta, launches, passes = counted_render(
+            GALLERY, SETTINGS, wide, chunk_size=CHUNK)
+        check_gallery(meta)
+        spec = meta.camera.film
+        spp = meta.settings["sample_per_pixel"]
+        depth = meta.settings["max_ray_depth"]
+        per_chunk = studio_launches_per_chunk(depth)
+        want = per_chunk * -(-spec.x_res * spec.y_res // CHUNK) * spp
+        steady[wide].append(float(np.mean(passes[1:])))
+        print(f"  turn {turn + 1}, width {wide}: {spec.x_res}x{spec.y_res} "
+              f"{spp} spp depth {depth}: seconds per pass "
+              f"{' '.join(f'{p:.4f}' for p in passes)} (the first with the "
+              f"load); passes 2-{spp}: {steady[wide][-1]:.4f} s/pass; "
+              f"launches {launches} (expected {want}: {per_chunk} a chunk); "
+              f"image mean {img.mean():.6f} max {img.max():.4f}", flush=True)
+        check(launches == no_launches(**{f"trace_bvh{wide}": want}),
+              f"width {wide}: launches {launches}, expected {want} of "
+              f"trace_bvh{wide} and no other")
+        images[wide], counts[wide] = img, launches
+    print(f"  steady seconds per pass by turn: width 8 "
+          f"{' '.join(f'{v:.4f}' for v in steady[8])} (turns 1 and 4), width "
+          f"4 {' '.join(f'{v:.4f}' for v in steady[4])} (turns 2 and 3)",
+          flush=True)
+    a, b = images[4], images[8]
+    close = (np.abs(a - b) <= 1e-4 + 1e-3 * np.abs(b)).all(axis=-1)
+    rel_mean = abs(a.mean() - b.mean()) / b.mean()
+    print(f"  width 4 vs width 8: pixels within 1e-4 + 1e-3 rel "
+          f"{close.mean():.6f}, means {a.mean():.6f} / {b.mean():.6f} (rel "
+          f"diff {rel_mean:.2e})", flush=True)
+    check(close.mean() >= 0.99, "width-4 and width-8 gallery images disagree")
+    check(rel_mean <= 1e-3, "width-4 and width-8 gallery image means disagree")
+    return counts
+
+
+def ao_path():
+    """Phase 14: the gallery scene under ao, and K1's any-hit on the launch
+    its first chunk makes. Returns (launches, the launch's numbers)."""
+    import torch
+
+    from goblin_tpu_torch.ops import trace as tt
+    from goblin_tpu_torch.scene import intersect as scn
+
+    ovr = {"render_method": "ao", "sample_per_pixel": 1}
+    caught = []
+    trace_rays = scn.trace_rays
+
+    def catching(scene, meta, o, d, mint, maxt, any_hit=False):
+        if any_hit and not caught:
+            caught.append((scene, [o, d, mint, maxt]))
+        return trace_rays(scene, meta, o, d, mint, maxt, any_hit=any_hit)
+
+    scn.trace_rays = catching
+    try:
+        img, meta, launches, passes = counted_render(GALLERY, ovr,
+                                                     chunk_size=CHUNK)
+    finally:
+        scn.trace_rays = trace_rays
+    check_gallery(meta)
+    spec = meta.camera.film
+    n_dir = meta.settings["ao_sample_num"]
+    want = 2 * -(-spec.x_res * spec.y_res // CHUNK)
+    print(f"  {spec.x_res}x{spec.y_res} 1 spp, {n_dir} directions: "
+          f"{passes[0]:.4f} s with the load; launches {launches} (expected "
+          f"{want}: a closest-hit and an any-hit launch a chunk); image mean "
+          f"{img.mean():.6f}", flush=True)
+    check(n_dir == AO_DIRECTIONS, f"ao_sample_num {n_dir}")
+    check(launches == no_launches(trace_bvh8=want),
+          f"ao launches {launches}, expected {want} of trace_bvh8")
+    # the first chunk's any-hit launch, as the path made it
+    scene, rays = caught[0]
+    rays = [r.contiguous() for r in rays]
+    n = rays[0].shape[0]
+    check(n == CHUNK * AO_DIRECTIONS, f"the any-hit launch has {n} rays")
+    full = tt.trace(scene, *rays, any_hit=True)
+    chunks = chunked(tt.trace, scene, rays, True)
+    plain = tt.trace_plain(scene, *rays, any_hit=True)
+    torch.cuda.synchronize()
+    check(torch.equal(full[0], chunks[0]),
+          "ao: chunked and whole any-hit launches differ")
+    check(torch.equal(full[0], plain[0]),
+          f"ao: any-hit differs from the plain version on "
+          f"{int((full[0] != plain[0]).sum())} of {n} rays")
+    live = (rays[2] < rays[3]).float().mean().item()
+    out = {"rays": n, "live_share": live, "hits": int(full[0].sum()),
+           "ms": time_ms(lambda: tt.trace(scene, *rays, any_hit=True),
+                         KERNEL_REPS),
+           "ms_in_chunks": time_ms(lambda: chunked(tt.trace, scene, rays,
+                                                   True), KERNEL_REPS),
+           "plain_ms": time_ms(lambda: tt.trace_plain(scene, *rays,
+                                                      any_hit=True), 1)}
+    print(f"  any-hit launch of chunk 0: rays {n} live {live:.4f} hits "
+          f"{out['hits']}, bit-equal to the plain version and to "
+          f"{n // CHUNK} launches of {CHUNK}; K1 {out['ms']:.4f} ms "
+          f"({out['ms_in_chunks']:.4f} ms in chunks), plain "
+          f"{out['plain_ms']:.2f} ms; "
+          f"{tt.launch_blocks('trace_bvh8', n)} persistent blocks",
+          flush=True)
+    return launches, out, float(passes[0])
+
+
+def whitted_launches_per_chunk(depth, sample_nums):
+    """Trace launches Whitted makes for one chunk of the gallery scene: a
+    full binary tree of 2^(depth + 1) - 1 nodes (the scene has glass), each
+    made by one trace, and at each node for every light sample MAX_PUNCH
+    punch-through rounds of the shadow ray and one BSDF-side intersect."""
+    nodes = 2 ** (depth + 1) - 1
+    return nodes * (1 + sum(sample_nums) * (MAX_PUNCH + 1))
+
+
+def whitted_path():
+    """Phase 15: the gallery scene under whitted. Returns (launches, s)."""
+    ovr = {"render_method": "whitted", "sample_per_pixel": 1,
+           "max_ray_depth": WHITTED_DEPTH}
+    img, meta, launches, passes = counted_render(GALLERY, ovr,
+                                                 chunk_size=CHUNK)
+    check_gallery(meta)
+    spec = meta.camera.film
+    depth = meta.settings["max_ray_depth"]
+    per_chunk = whitted_launches_per_chunk(depth, meta.light_sample_nums)
+    want = per_chunk * -(-spec.x_res * spec.y_res // CHUNK)
+    print(f"  {spec.x_res}x{spec.y_res} 1 spp, max_ray_depth {depth} (the "
+          f"scene asks for 5, whose {2 ** 6 - 1} nodes take "
+          f"{whitted_launches_per_chunk(5, meta.light_sample_nums)} launches "
+          f"a chunk): {2 ** (depth + 1) - 1} nodes, {passes[0]:.3f} s with the "
+          f"load; launches {launches} (expected {want}: {per_chunk} a "
+          f"chunk); image mean {img.mean():.6f} max {img.max():.4f}",
+          flush=True)
+    check(launches == no_launches(trace_bvh8=want),
+          f"whitted launches {launches}, expected {want} of trace_bvh8")
+    return launches, float(passes[0])
+
+
+def light_tracing_path():
+    """Phase 16: the gallery scene under light_tracing. Returns (launches,
+    s)."""
+    ovr = {"render_method": "light_tracing", "sample_per_pixel": 1}
+    img, meta, launches, chunks_s = counted_render(GALLERY, ovr)
+    check_gallery(meta)
+    spec = meta.camera.film
+    depth = meta.settings["max_ray_depth"]
+    n_chunks = -(-spec.x_res * spec.y_res // LT_CHUNK)
+    # a chunk: the walk's depth - 1 closest-hit traces, then a connection
+    # of the light vertex and of each surface vertex
+    per_chunk = (depth - 1) + depth
+    check(len(chunks_s) == n_chunks, f"{len(chunks_s)} chunks reported")
+    print(f"  {spec.x_res}x{spec.y_res} 1 spp depth {depth}, strategy "
+          f"{meta.settings['lt_strategy']}: {n_chunks} chunks of {LT_CHUNK} "
+          f"paths, {chunks_s[0]:.3f} s the first with the load, "
+          f"{chunks_s[1:].mean():.4f} s a chunk after, {chunks_s.sum():.3f} s "
+          f"the render; launches {launches} (expected "
+          f"{per_chunk * n_chunks}: {per_chunk} a chunk); image mean "
+          f"{img.mean():.6f} max {img.max():.4f}", flush=True)
+    check(launches == no_launches(trace_bvh8=per_chunk * n_chunks),
+          f"light tracing launches {launches}, expected "
+          f"{per_chunk * n_chunks} of trace_bvh8")
+    return launches, float(chunks_s[1:].sum())
+
+
+def light_tracing_estimators():
+    """Phase 16: the t0 and s1 estimators against t1 at 48 x 36 on the
+    card, as goblin_tpu's tests hold them to one another: image means."""
+    from goblin_tpu_torch import splatting
+    from goblin_tpu_torch.scene.loader import load_scene
+
+    scene, meta = load_scene(GALLERY, {"render_method": "light_tracing"},
+                             device="cuda")
+    small_film(meta)
+    means = {}
+    for strategy, spp in LT_CHECK_SPP.items():
+        t = time.perf_counter()
+        img = splatting.render_light_tracer(
+            scene, meta, chunk_size=LT_CHECK_CHUNK, spp=spp,
+            strategy=strategy)
+        means[strategy] = img.mean().item()
+        print(f"  48x36 {strategy}: {spp * 48 * 36} paths in chunks of "
+              f"{LT_CHECK_CHUNK}, {time.perf_counter() - t:.2f} s, image "
+              f"mean {means[strategy]:.6f}", flush=True)
+    for strategy, rtol in LT_CHECK_RTOL.items():
+        rel = abs(means[strategy] - means["t1"]) / means["t1"]
+        print(f"  {strategy} vs t1: means differ by {rel:.4f} (allowed "
+              f"{rtol})", flush=True)
+        check(rel <= rtol, f"light tracing {strategy} and t1 disagree: "
+                           f"{means[strategy]} vs {means['t1']}")
+
+
 def run():
     import torch
 
@@ -999,7 +1250,7 @@ def run():
     del scene
 
     print("[4] card vs CPU reference render:", flush=True)
-    reference_check()
+    reference_check(PT_CHECK, BUNNY)
 
     print("[5] main path (path tracing):", flush=True)
     pt_launches = main_path()
@@ -1022,7 +1273,7 @@ def run():
     sppm_counts = sppm_main_path()
 
     print("[9] SPPM card vs CPU reference render (width 1):", flush=True)
-    sppm_reference_check()
+    reference_check(SPPM_CHECK, BUNNY, wide=1)
 
     print("[10] the width-4 instance vs plain and vs width 8:", flush=True)
     w4 = {label: compare_width4(label, path)
@@ -1031,11 +1282,31 @@ def run():
     print("[11] studio scene, path tracing through render_context:",
           flush=True)
     studio_counts = studio_main_path()
-    reference_check(STUDIO, wide=4)
+    reference_check(PT_CHECK, STUDIO, wide=4)
 
     print("[12] studio scene, SPPM through render_context:", flush=True)
     studio_sppm_launches, studio_sppm_s = studio_sppm_path()
-    sppm_reference_check(STUDIO, wide=4)
+    reference_check(SPPM_CHECK, STUDIO, wide=4)
+
+    print("[13] gallery scene (the texture chain), path tracing through "
+          "render_context:", flush=True)
+    gallery_counts = gallery_main_path()
+    reference_check(PT_CHECK)
+
+    print("[14] gallery scene, ambient occlusion:", flush=True)
+    ao_launches, ao_anyhit, ao_s = ao_path()
+    reference_check({"render_method": "ao", "sample_per_pixel": 1})
+
+    print("[15] gallery scene, Whitted:", flush=True)
+    whitted_launches, whitted_s = whitted_path()
+    reference_check({"render_method": "whitted", "sample_per_pixel": 1,
+                            "max_ray_depth": WHITTED_DEPTH})
+
+    print("[16] gallery scene, light tracing:", flush=True)
+    lt_launches, lt_s = light_tracing_path()
+    reference_check({"render_method": "light_tracing",
+                            "sample_per_pixel": 1})
+    light_tracing_estimators()
 
     print(f"  clocks.sm, power.draw, temperature: "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -1057,30 +1328,56 @@ def run():
     # the stats instance also writes 12 bytes a ray
     stats_row.update(bound(n_frame, k1_table_bytes, k1_census[2],
                            k1_census[3], stats_row["ms"], out_bytes=17 + 12))
-    # launches: the SPPM render's at the kernel's own width; path tracing is
-    # driven at width 8
+    # launches: every render that went through render_context in this run,
+    # read with the counters set to 0 just before it, by path; the row's
+    # launches is their sum (a path driven in turns counts its last turn)
     spp = SETTINGS["sample_per_pixel"]
+    by_path = {
+        "trace_bvh8": {
+            "bunny path_tracing": pt_launches,
+            "bunny sppm": sppm_counts[8],
+            "studio path_tracing": studio_counts[8],
+            "gallery path_tracing": gallery_counts[8],
+            "gallery ao": ao_launches,
+            f"gallery whitted depth {WHITTED_DEPTH}": whitted_launches,
+            "gallery light_tracing": lt_launches,
+        },
+        "trace_bvh2": {"bunny sppm": sppm_counts[1]},
+        "trace_bvh4": {
+            "studio path_tracing": studio_counts[4],
+            "studio sppm": studio_sppm_launches,
+            "gallery path_tracing": gallery_counts[4],
+        },
+    }
     for r, width in ((row, 8), (k2_row, 1), (stats_row, 8)):
         name = r["name"]
-        r["launches"] = sppm_counts[width][name]
         r["launches_per_pt_pass"] = pt_launches[name] // spp
         r["launches_per_sppm_iteration"] = (sppm_counts[width][name]
                                             // SPPM_ITERATIONS)
-    row["launches_path_tracing"] = pt_launches["trace_bvh8"]
-    row["launches_studio_path_tracing"] = studio_counts[8]["trace_bvh8"]
     # the width-4 row: bunny's primary frame like the rows above, the studio
-    # scene's beside it; its launches are the studio renders' at width 4
+    # scene's beside it
     w4_row = {"name": "trace_bvh4", "route": "cuda",
               "source": "goblin_tpu_torch/csrc/trace_bvh8.cu",
               "replaces": "goblin_tpu/ops/pallas_trace.py:522",
               "instance": "-DGOBLIN_TRACE_WIDTH=4", **w4["bunny"],
               "studio": w4["studio"],
-              "launches": studio_counts[4]["trace_bvh4"],
               "launches_per_pt_pass": studio_counts[4]["trace_bvh4"] // spp,
               "launches_per_sppm_iteration":
                   studio_sppm_launches["trace_bvh4"] // STUDIO_SPPM_ITERATIONS,
-              "launches_counted_in": "the studio scene's renders at width 4",
               "studio_sppm_s_per_iteration": studio_sppm_s}
+    for r in (row, k2_row, w4_row):
+        paths = {path: counts[r["name"]]
+                 for path, counts in by_path[r["name"]].items()}
+        check(all(paths.values()), f"{r['name']}: a path launched it no "
+                                   f"time: {paths}")
+        r["launches_by_path"] = paths
+        r["launches"] = sum(paths.values())
+    # the largest launch any path makes: AO's any-hit batch
+    row["ao_anyhit"] = ao_anyhit
+    row["seconds"] = {"gallery ao pass with the load": ao_s,
+                      f"gallery whitted depth {WHITTED_DEPTH} pass with the "
+                      "load": whitted_s,
+                      "gallery light_tracing chunks 2-12": lt_s}
     # no render path runs the stats instance: its row counts phase 7's census
     stats_row["launches"] = stats_launches
     stats_row["launches_counted_in"] = "phase 7's visit census"

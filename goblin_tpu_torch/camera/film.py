@@ -30,6 +30,39 @@ class FilterSpec:
     b: float = 2.0  # mitchell
     c: float = 2.0  # mitchell
 
+    def normalize_term(self) -> float:
+        """The filter's integral (reference getNormalizeTerm of each
+        filter), which a splat with normalized=True divides by."""
+        if self.kind == FILTER_BOX:
+            return 4.0 * self.x_width * self.y_width
+        if self.kind == FILTER_TRIANGLE:
+            return self.x_width ** 2 * self.y_width ** 2
+        if self.kind == FILTER_GAUSSIAN:
+            # the reference's numeric approximation on a 20 x 20 grid
+            # (src/GoblinFilter.cpp:48-63)
+            step = 20
+            dx = self.x_width / step
+            dy = self.y_width / step
+            ex = np.exp(-self.falloff * self.x_width ** 2)
+            ey = np.exp(-self.falloff * self.y_width ** 2)
+            xs = np.arange(step) * dx
+            ys = np.arange(step) * dy
+            gx = np.maximum(0.0, np.exp(-self.falloff * xs ** 2) - ex)
+            gy = np.maximum(0.0, np.exp(-self.falloff * ys ** 2) - ey)
+            return float(4.0 * dx * dy * np.outer(gy, gx).sum())
+        if self.kind == FILTER_MITCHELL:
+            # separable: the 1D filter in pixel units is M(2 x / width), so
+            # an axis integrates to width * (I0 + I1), the integrals of the
+            # Mitchell polynomial's pieces over [0, 1] and [1, 2]
+            # (goblin_tpu's value, not the reference's mixed sum)
+            b, c = self.b, self.c
+            i0 = ((12 - 9 * b - 6 * c) / 4 + (-18 + 12 * b + 6 * c) / 3
+                  + (6 - 2 * b)) / 6.0
+            i1 = (15 * (-b - 6 * c) / 4 + 7 * (6 * b + 30 * c) / 3
+                  + 3 * (-12 * b - 48 * c) / 2 + (8 * b + 24 * c)) / 6.0
+            return float(self.x_width * self.y_width * (i0 + i1) ** 2)
+        raise ValueError(self.kind)
+
     def evaluate(self, dx, dy):
         """Unnormalised filter value at offsets (broadcastable tensors)."""
         if self.kind == FILTER_BOX:
@@ -78,6 +111,15 @@ class FilmSpec:
         yc = max(1, int(np.ceil(self.y_res * self.crop[3])) - ys)
         return xs, xc, ys, yc
 
+    def sample_range(self):
+        """(x_start, x_end, y_start, y_end) of the continuous sample
+        positions that reach the crop window: the window widened by the
+        filter (reference Film::getSampleRange)."""
+        xs, xc, ys, yc = self.crop_window()
+        fw, fh = self.filter.x_width, self.filter.y_width
+        return (int(np.floor(xs + 0.5 - fw)), int(np.floor(xs + 0.5 + xc + fw)),
+                int(np.floor(ys + 0.5 - fh)), int(np.floor(ys + 0.5 + yc + fh)))
+
 
 def new_film(spec: FilmSpec, device):
     """-> (color (H, W, 3), weight (H, W)) zeroed on device."""
@@ -89,11 +131,13 @@ def new_film(spec: FilmSpec, device):
     )
 
 
-def splat_taps(spec: FilmSpec, x, y, L):
+def splat_taps(spec: FilmSpec, x, y, L, normalized=False):
     """Filter taps of samples at continuous image coords x, y (R,) with
     radiance L (R, 3) -> (flat pixel index, w, w * L) over each sample's
     static window of candidate pixels. Taps outside the filter or the film,
-    and non-finite samples, get weight 0 (and radiance 0)."""
+    and non-finite samples, get weight 0 (and radiance 0). normalized
+    divides the weights by the filter's integral, for the integrators that
+    resolve the film without its weights (the light tracer)."""
     f = spec.filter
     dx_img = x - 0.5
     dy_img = y - 0.5
@@ -113,6 +157,8 @@ def splat_taps(spec: FilmSpec, x, y, L):
               & (px >= 0) & (px < spec.x_res) & (py >= 0) & (py < spec.y_res)
               & nan_ok[:, None, None])
     w = torch.where(inside, w, 0.0)
+    if normalized:
+        w = w / f.normalize_term()
     # a weight of 0 times a non-finite sample is still NaN: zero L first
     L = torch.where(nan_ok[:, None], L, 0.0)
     flat_idx = (torch.clamp(py, 0, spec.y_res - 1) * spec.x_res
@@ -128,11 +174,10 @@ def splat_accum(color, weight, flat_idx, w_flat, wL):
     return color, weight
 
 
-def splat(spec: FilmSpec, color, weight, x, y, L):
+def splat(spec: FilmSpec, color, weight, x, y, L, normalized=False):
     """Filter-splat a batch of samples into the film (taps, then scatter);
-    adds into color and weight in place and returns them. (goblin_tpu's
-    normalized flag, for the light tracer, comes with it.)"""
-    return splat_accum(color, weight, *splat_taps(spec, x, y, L))
+    adds into color and weight in place and returns them."""
+    return splat_accum(color, weight, *splat_taps(spec, x, y, L, normalized))
 
 
 def splat_dense(spec: FilmSpec, color, weight, jx, jy, L, ys0=0, xs0=0):
@@ -175,9 +220,12 @@ def splat_dense(spec: FilmSpec, color, weight, jx, jy, L, ys0=0, xs0=0):
     return color, weight
 
 
-def to_image(color, weight):
-    """Resolve the accumulation to an image (reference Film::writeImage)."""
-    return color / torch.clamp(weight, min=1e-30)[..., None]
+def to_image(color, weight, normalize: bool = True):
+    """Resolve the accumulation to an image (reference Film::writeImage):
+    the colour over the weights, or as it is with normalize=False."""
+    if normalize:
+        return color / torch.clamp(weight, min=1e-30)[..., None]
+    return color
 
 
 def write_image(spec: FilmSpec, image) -> str:

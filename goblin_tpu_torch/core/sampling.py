@@ -46,6 +46,14 @@ def uniform_sphere_pdf():
     return 0.5 * INV_TWO_PI
 
 
+def uniform_sample_hemisphere(u1, u2):
+    """Uniform direction on the z-up hemisphere."""
+    sin_t = torch.sqrt(torch.clamp(1.0 - u1 * u1, min=0.0))
+    phi = TWO_PI * u2
+    return torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), u1],
+                       dim=-1)
+
+
 def cosine_sample_hemisphere(u1, u2):
     sin_t = torch.sqrt(u1)
     cos_t = torch.sqrt(torch.clamp(1.0 - u1, min=0.0))

@@ -28,11 +28,16 @@ def gather_material(scene, meta, frag, u_mask=None):
     mask_u, the sample that picks between the inner lobe and the
     punch-through (u_mask; zeros when not given). Scenes without a mask
     material (meta.has_null false) skip the second gather and carry none
-    of the mask keys."""
+    of the mask keys. frag needs mat and uv; p (spherical mappings) and
+    duv / duv4 (the filtered lookups' footprint) are read where present."""
     table = scene["mat_rows"]
     rows = table[frag["mat"]]  # (R, 8)
-    tex = meta.texture_system.eval_all(frag["uv"], scene["tex_const"])
-    ftex = meta.float_texture_system.eval_all(frag["uv"], scene["ftex_const"])
+    where = {"p": frag.get("p"), "duv": frag.get("duv"),
+             "duv4": frag.get("duv4")}
+    tex = meta.texture_system.eval_all(
+        frag["uv"], scene["tex_atlas"], scene["tex_const"], **where)
+    ftex = meta.float_texture_system.eval_all(
+        frag["uv"], scene["ftex_atlas"], scene["ftex_const"], **where)
     mask = {}
     if meta.has_null:
         rows_mid = rows

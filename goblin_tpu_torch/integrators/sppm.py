@@ -221,7 +221,7 @@ def make_photon_passes(scene, meta, seed, max_len, n_pix):
 
     def deposit_chunk(photon_ids, it, bbox_min, inv_len, max_r):
         em, verts = walk_light_paths(scene, meta, photon_ids, it, seed,
-                                     max_len + 1)
+                                     max_len + 1, mode=bx.MODE_RADIANCE)
         le_scale = lt.eval_emission(lights, em["lid"], em["n"], em["dir"],
                                     env_le=_env_le_at(scene, meta, em["dir"]))
         rows, valid = [], []

@@ -1,7 +1,8 @@
-"""Minimal OpenEXR scanline writer, numpy only (port of the writer in
+"""Minimal OpenEXR scanline reader and writer, numpy only (port of
 goblin_tpu/io/exr.py).
 
-RGB FLOAT or HALF channels, ZIP or no compression. Channels are stored in
+Write: RGB FLOAT or HALF channels, ZIP or no compression. Read: FLOAT or
+HALF channels, no compression, ZIPS or ZIP. Channels are stored in
 alphabetical order (B, G, R) per the EXR spec.
 """
 
@@ -15,6 +16,7 @@ import numpy as np
 _MAGIC = 20000630
 _VERSION = 2
 _NO_COMPRESSION = 0
+_ZIPS_COMPRESSION = 2  # 1 scanline per block
 _ZIP_COMPRESSION = 3  # 16 scanlines per block
 _PT_HALF = 1
 _PT_FLOAT = 2
@@ -41,6 +43,19 @@ def _predictor_encode(data: bytes) -> bytes:
     out[0] = tmp[0]
     out[1:] = tmp[1:] - tmp[:-1] + (128 + 256)
     return (out % 256).astype(np.uint8).tobytes()
+
+
+def _predictor_decode(data: bytes) -> bytes:
+    """Undo _predictor_encode: integrate the deltas, then interleave the
+    two halves back into alternating bytes."""
+    arr = np.frombuffer(data, dtype=np.uint8).astype(np.int64)
+    steps = np.concatenate([arr[:1], arr[1:] - 128])
+    tmp = (np.cumsum(steps) % 256).astype(np.uint8)
+    half = (len(tmp) + 1) // 2
+    out = np.empty(len(tmp), dtype=np.uint8)
+    out[0::2] = tmp[:half]
+    out[1::2] = tmp[half:]
+    return out.tobytes()
 
 
 def write_exr(path: str, image: np.ndarray, half: bool = False,
@@ -100,3 +115,76 @@ def write_exr(path: str, image: np.ndarray, half: bool = False,
         for y0, enc in blocks:
             f.write(struct.pack("<ii", y0, len(enc)))
             f.write(enc)
+
+
+def read_exr(path: str) -> np.ndarray:
+    """Read a scanline EXR -> (H, W, 3) float32 (R, G, B); a channel the
+    file lacks stays 0. The blocks are walked in file order and the offset
+    table is skipped unread, so files whose table is off (goblin_tpu's
+    writer puts its offsets 4 bytes late) read the same."""
+    with open(path, "rb") as f:
+        buf = f.read()
+    magic, version = struct.unpack_from("<ii", buf, 0)
+    if magic != _MAGIC:
+        raise ValueError(f"not an EXR file: {path}")
+    if version & 0x200:
+        raise ValueError("tiled EXR not supported")
+    pos = 8
+    channels = []  # (name, pixel type), in file order
+    comp = _NO_COMPRESSION
+    dw = None
+    while buf[pos] != 0:
+        name_end = buf.index(b"\x00", pos)
+        name = buf[pos:name_end].decode()
+        pos = buf.index(b"\x00", name_end + 1) + 1  # past the type name
+        (size,) = struct.unpack_from("<i", buf, pos)
+        pos += 4
+        data = buf[pos:pos + size]
+        pos += size
+        if name == "channels":
+            cpos = 0
+            while data[cpos] != 0:
+                cend = data.index(b"\x00", cpos)
+                (ptype,) = struct.unpack_from("<i", data, cend + 1)
+                channels.append((data[cpos:cend].decode(), ptype))
+                cpos = cend + 1 + 16
+        elif name == "compression":
+            comp = data[0]
+        elif name == "dataWindow":
+            dw = struct.unpack("<iiii", data)
+    pos += 1
+    if dw is None:
+        raise ValueError("missing dataWindow")
+    if comp not in (_NO_COMPRESSION, _ZIPS_COMPRESSION, _ZIP_COMPRESSION):
+        raise ValueError(f"unsupported compression id {comp}")
+    w = dw[2] - dw[0] + 1
+    h = dw[3] - dw[1] + 1
+    lines_per_block = 16 if comp == _ZIP_COMPRESSION else 1
+    n_blocks = (h + lines_per_block - 1) // lines_per_block
+    pos += 8 * n_blocks  # the offset table
+
+    channels.sort()
+    dtypes = {name: np.float16 if ptype == _PT_HALF else np.float32
+              for name, ptype in channels}
+    line_bytes = sum(w * np.dtype(dt).itemsize for dt in dtypes.values())
+    out = np.zeros((h, w, 3), dtype=np.float32)
+    target = {"R": 0, "G": 1, "B": 2}
+    for _ in range(n_blocks):
+        y0, size = struct.unpack_from("<ii", buf, pos)
+        pos += 8
+        raw = buf[pos:pos + size]
+        pos += size
+        y0 -= dw[1]
+        ny = min(lines_per_block, h - y0)
+        # a block that did not shrink is stored raw
+        if comp != _NO_COMPRESSION and size != ny * line_bytes:
+            raw = _predictor_decode(zlib.decompress(raw))
+        rpos = 0
+        for y in range(y0, y0 + ny):
+            for name, _ in channels:
+                nbytes = w * np.dtype(dtypes[name]).itemsize
+                if name in target:
+                    out[y, :, target[name]] = np.frombuffer(
+                        raw[rpos:rpos + nbytes], dtype=dtypes[name])
+                rpos += nbytes
+    return out

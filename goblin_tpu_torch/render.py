@@ -1,5 +1,5 @@
 """Scene file -> image, and the command line (port of goblin_tpu/render.py
-for the path_tracing and sppm methods).
+for the path_tracing, ao, whitted, light_tracing and sppm methods).
 
     python -m goblin_tpu_torch scene.json [render_method] [--device cuda|cpu]
 
@@ -25,23 +25,34 @@ SPLAT_METHODS = ("light_tracing", "bdpt", "sppm")
 def make_li(meta):
     """The integrator's batched Li for meta.settings["render_method"]."""
     method = meta.settings.get("render_method", "path_tracing")
+    if method == "ao":
+        from .integrators.ao import make_li as mk
+
+        return mk(int(meta.settings.get("ao_sample_num", 25)))
+    if method == "whitted":
+        from .integrators.whitted import make_li as mk
+
+        return mk(meta)
     if method in PATH_METHODS:
         from .integrators.path import make_li as mk
 
         return mk(meta)
-    raise NotImplementedError(
-        f"render_method {method!r} is not in goblin_tpu_torch yet "
-        "(ROADMAP Queue 1 items 9-10)"
-    )
+    if method == "bdpt":
+        raise NotImplementedError(
+            "render_method 'bdpt' is not in goblin_tpu_torch yet (ROADMAP "
+            "Queue 1 item 10)")
+    raise ValueError(f"render_method {method!r} has no batched Li")
 
 
 def render_context(path: str, overrides=None, device="cuda",
                    chunk_size=1 << 16, report=None, trace_wide=8):
     """Load and render a scene -> (image (H, W, 3) tensor, meta).
 
-    chunk_size: pixels per path-tracing chunk; report(done, total) after
-    each pass or iteration; trace_wide: the trace kernel's tree, 8 (BVH8),
-    4 (BVH4) or 1 (binary). The splatting methods go to splatting.render_dispatch.
+    chunk_size: pixels per chunk of the camera-sampled integrators (path
+    tracing, ao, whitted); report(done, total) after each pass or
+    iteration; trace_wide: the trace kernel's tree, 8 (BVH8), 4 (BVH4) or 1
+    (binary). The splatting methods go to splatting.render_dispatch, with
+    their own chunk sizes.
     """
     scene, meta = load_scene(path, overrides, device=device,
                              trace_wide=trace_wide)

@@ -46,6 +46,8 @@ class MatSpec:
     eta: float = 1.5
     k: float = -1.0
     inner: int = -1  # mask: the wrapped material's row
+    bump_tex: int = -1  # float texture id of the bump map, or -1
+    normal_tex: int = -1  # color texture id of the normal map, or -1
 
 
 @dataclass
@@ -77,7 +79,15 @@ class SceneMeta:
     texture_system: TextureSystem = None
     float_texture_system: TextureSystem = None
     max_leaf: int = MAX_LEAF
+    has_perturb: bool = False  # a material carries a bump or normal map
     has_null: bool = False  # a mask material (null lobe) is in the scene
+    # image-based light / subsurface material in the scene: the loader
+    # refuses both, so these stay False until their integrators are ported
+    has_env: bool = False
+    has_bssrdf: bool = False
+    # NEE samples of each light (reference Light::getSamplesNum), which
+    # Whitted's direct lighting takes
+    light_sample_nums: tuple = ()
     # every light is a delta light: a BSDF ray never hits an emitter, so
     # the path tracer skips the last bounce's continuation trace
     all_delta_lights: bool = False
@@ -333,8 +343,14 @@ class SceneBuilder:
             "tri_mat": dev(MAT),
             "tri_light": dev(LIGHT),
             "mat_rows": dev(mat_rows),
-            "tex_const": tex_sys.const_table(device),
-            "ftex_const": ftex_sys.const_table(device),
+            "mat_bump": dev(np.asarray([m.bump_tex for m in self.materials],
+                                       np.int32)),
+            "mat_normal": dev(np.asarray([m.normal_tex for m in self.materials],
+                                         np.int32)),
+            "tex_atlas": dev(tex_sys.atlas),
+            "ftex_atlas": dev(ftex_sys.atlas),
+            "tex_const": dev(tex_sys.const),
+            "ftex_const": dev(ftex_sys.const),
             "lights": bake_lights(self.lights, LIGHT[em_sel], em_area,
                                   world_center, world_radius, device,
                                   sph_l_center, sph_l_radius, light_is_sphere),
@@ -379,7 +395,10 @@ class SceneBuilder:
             has_lens=any(d[6] for d in disks),
             texture_system=tex_sys,
             float_texture_system=ftex_sys,
+            has_perturb=any(m.bump_tex >= 0 or m.normal_tex >= 0
+                            for m in self.materials),
             has_null=any(m.kind == MAT_MASK for m in self.materials),
+            light_sample_nums=tuple(int(n) for n in self.lights.sample_nums),
             all_delta_lights=all(t in DELTA_LIGHTS for t in self.lights.types),
             material_kinds=tuple(sorted({m.kind for m in self.materials})),
             world_bounds=(tuple(float(v) for v in bmin),

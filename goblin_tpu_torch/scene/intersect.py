@@ -19,7 +19,7 @@ import torch
 
 from ..core import vecmath as vm
 from ..geometry.intersect import BIG_T, intersect_sphere
-from ..integrators.materials import COL_TYPE, gather_material
+from ..integrators.materials import COL_TYPE, _pick, gather_material
 from ..ops.trace import TraceResult, trace, trace_bin
 from ..shading.bsdf import MAT_MASK
 
@@ -231,6 +231,8 @@ def intersect(scene, meta, o, d, mint, maxt, dxd=None, dyd=None):
     else:
         frag["duv4"] = torch.zeros(t.shape + (4,), dtype=t.dtype, device=t.device)
         frag["duv"] = torch.zeros(t.shape + (2,), dtype=t.dtype, device=t.device)
+    if meta.has_perturb:
+        frag = _perturb(scene, meta, frag)
     return frag
 
 
@@ -274,6 +276,52 @@ def _uv_differentials(o, dxd, dyd, p, n, dpdu, dpdv, hit):
     duv = torch.stack([torch.maximum(dudx.abs(), dudy.abs()),
                        torch.maximum(dvdx.abs(), dvdy.abs())], dim=-1)
     return duv4, duv
+
+
+def _perturb(scene, meta, frag):
+    """Bump- and normal-map perturbation of the shading normal at hit time
+    (reference Material::perturb called from Scene::intersect,
+    src/GoblinMaterial.cpp:221-283, src/GoblinScene.cpp:75-83). Bump: a
+    forward difference of the height map along u and v, over the lane's uv
+    footprint but at least 5e-4 (a continuation fragment has no footprint),
+    tilts dpdu and dpdv. Normal map: a tangent-space normal decoded from
+    the color texture. Lanes whose material has neither stay as they are."""
+    uv, ns, dpdu, dpdv = frag["uv"], frag["ns"], frag["dpdu"], frag["dpdv"]
+    bump_id = scene["mat_bump"][frag["mat"]]
+    norm_id = scene["mat_normal"][frag["mat"]]
+    du = torch.clamp(frag["duv"][..., 0], min=5e-4)
+    dv = torch.clamp(frag["duv"][..., 1], min=5e-4)
+    zero = torch.zeros_like(du)
+    bump_row = torch.clamp(bump_id, min=0).long()
+
+    def height(uv_q):
+        stack = meta.float_texture_system.eval_all(
+            uv_q, scene["ftex_atlas"], scene["ftex_const"], p=frag["p"])
+        return _pick(stack, bump_row)[..., 0]
+
+    h0 = height(uv)
+    dhdu = (height(uv + torch.stack([du, zero], dim=-1)) - h0) / du
+    dhdv = (height(uv + torch.stack([zero, dv], dim=-1)) - h0) / dv
+    bu = dpdu + dhdu[..., None] * ns
+    bv = dpdv + dhdv[..., None] * ns
+    n_bump = vm.normalize(vm.cross(bu, bv), eps=1e-30)
+    # keep the side of the original shading normal
+    n_bump = torch.where(vm.dotn(n_bump, ns) < 0.0, -n_bump, n_bump)
+    has_bump = (bump_id >= 0)[..., None]
+    ns = torch.where(has_bump, n_bump, ns)
+    dpdu = torch.where(has_bump, bu, dpdu)
+    dpdv = torch.where(has_bump, bv, dpdv)
+
+    tex_stack = meta.texture_system.eval_all(
+        uv, scene["tex_atlas"], scene["tex_const"], p=frag["p"])
+    n_ts = 2.0 * _pick(tex_stack, torch.clamp(norm_id, min=0).long()) - 1.0
+    t_ = vm.normalize(dpdu - vm.dotn(dpdu, ns) * ns, eps=1e-30)
+    b_ = vm.cross(ns, t_)
+    n_map = vm.normalize(
+        n_ts[..., 0:1] * t_ + n_ts[..., 1:2] * b_ + n_ts[..., 2:3] * ns,
+        eps=1e-30)
+    ns = torch.where((norm_id >= 0)[..., None], n_map, ns)
+    return dict(frag, ns=ns, dpdu=dpdu, dpdv=dpdv)
 
 
 def occluded(scene, meta, o, d, mint, maxt):

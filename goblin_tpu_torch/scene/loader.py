@@ -2,12 +2,15 @@
 the reference schema that the ported integrators render).
 
 Supported: meshes (OBJ), analytic spheres and disks placed by instances,
-constant color and float textures, lambert / blinn / transparent / mirror /
-mask materials, point / spot / directional / area lights, perspective
-(pinhole or thin-lens) and orthographic cameras, box / triangle / gaussian
-/ mitchell film filters and EXR output. Any other feature raises
-NotImplementedError naming the ROADMAP item that brings it; nothing is
-silently skipped. Unknown texture and material names resolve to the
+constant / checkerboard / scale / image textures of color and float format
+with uv or spherical mapping, bump and normal maps, lambert / blinn /
+transparent / mirror / mask materials, point / spot / directional / area
+lights, perspective (pinhole or thin-lens) and orthographic cameras, box /
+triangle / gaussian / mitchell film filters and EXR output. Any other
+feature raises NotImplementedError naming the ROADMAP item that brings it,
+and a texture file that does not load or an unknown texture type, mapping
+or channel raises ValueError, where goblin_tpu prints and goes on; nothing
+is silently skipped. Unknown texture and material names resolve to the
 magenta error assets, as in the reference (src/GoblinScene.cpp:112-128).
 
 Material and texture ids are table rows, so materials are added in
@@ -21,6 +24,8 @@ from __future__ import annotations
 
 import json
 import os
+import struct
+import zlib
 
 import numpy as np
 import torch
@@ -28,11 +33,16 @@ import torch
 from ..camera.camera import CameraSpec
 from ..camera.film import FilmSpec, FilterSpec
 from ..geometry.mesh import load_obj
+from ..io.exr import read_exr
 from ..lights.lights import (LIGHT_AREA, LIGHT_DIRECTIONAL, LIGHT_POINT,
                              LIGHT_SPOT)
 from ..shading.bsdf import (MAT_BLINN, MAT_LAMBERT, MAT_MASK, MAT_MIRROR,
                             MAT_TRANSPARENT)
-from ..shading.textures import TexSpec
+from ..shading.textures import (ADDRESS_BORDER, ADDRESS_CLAMP, ADDRESS_REPEAT,
+                                FILTER_BILINEAR, FILTER_EWA, FILTER_NEAREST,
+                                FILTER_TRILINEAR, MAP_SPHERICAL,
+                                TEX_CHECKERBOARD, TEX_CONSTANT, TEX_IMAGE,
+                                TEX_SCALE, TexSpec)
 from .bake import InstanceRecord, MatSpec, SceneBuilder
 from .params import ParamSet, get_quaternion, get_transform
 
@@ -52,6 +62,98 @@ def _add_black(builder) -> int:
 
 def _resolve_path(scene_dir, p):
     return p if os.path.isabs(p) else os.path.join(scene_dir, p)
+
+
+_FILTERS = {"nearest": FILTER_NEAREST, "bilinear": FILTER_BILINEAR,
+            "trilinear": FILTER_TRILINEAR, "EWA": FILTER_EWA}
+_ADDRESSES = {"repeat": ADDRESS_REPEAT, "clamp": ADDRESS_CLAMP,
+              "border": ADDRESS_BORDER}
+
+
+def _load_texture_image(path, channel, fmt):
+    """An image file as (H, W, 3) texels with the channel selection done
+    (reference convertTexel, src/GoblinTexture.cpp:486-518): R / G / B
+    replicate that channel, A reads 1 where the file has no alpha, and
+    "All" keeps RGB for a color texture and takes the Rec.709 luminance
+    for a float one."""
+    try:
+        img = read_exr(path)
+    except (OSError, ValueError, IndexError, struct.error, zlib.error) as e:
+        raise ValueError(f"texture image {path!r} failed to load: {e}") from e
+    if channel in ("R", "G", "B"):
+        c = "RGB".index(channel)
+        return np.repeat(img[:, :, c:c + 1], 3, axis=2)
+    if channel == "A":
+        # the reader returns RGB: an absent alpha is 1 (the EXR default)
+        return np.ones_like(img)
+    if channel != "All":
+        raise ValueError(f"texture image {path!r}: unrecognized channel "
+                         f"{channel!r}")
+    if fmt == "float":
+        lum = (0.212671 * img[:, :, 0:1] + 0.715160 * img[:, :, 1:2]
+               + 0.072169 * img[:, :, 2:3])
+        return np.repeat(lum.astype(np.float32), 3, axis=2)
+    return img
+
+
+def _parse_texture(out, p, scene_dir, color_tex, float_tex):
+    """Add one entry of the scene's textures section to out, the scene being
+    built, and file its id under its name, in the namespace of its format. A checkerboard's
+    or scale node's child that is not (yet) declared resolves to texture 0,
+    the error asset, as in goblin_tpu."""
+    fmt = p.get_string("format", "color")
+    kind = p.get_string("type", "constant")
+    mapping = p.get_string("mapping", "uv")
+    ms = p.get_vec2("scale", (1.0, 1.0)) if kind != "scale" else (1.0, 1.0)
+    mo = p.get_vec2("offset", (0.0, 0.0))
+    # spherical mapping: the texture's own position / orientation / scale,
+    # applied forward to the world-space hit point (reference
+    # getTextureMapping and SphericalMapping::pointToST,
+    # src/GoblinTexture.cpp:600-613, 339-347)
+    map_kw = {"map_scale": (float(ms[0]), float(ms[1])),
+              "map_offset": (float(mo[0]), float(mo[1]))}
+    if mapping == "spherical":
+        map_kw.update(mapping=MAP_SPHERICAL, world_to_tex=get_transform(p))
+    elif mapping != "uv":
+        raise ValueError(f"texture {p.get_string('name')!r}: undefined "
+                         f"mapping type {mapping!r}")
+    table = color_tex if fmt == "color" else float_tex
+    add = out.add_color_texture if fmt == "color" else out.add_float_texture
+    if kind == "constant":
+        if fmt == "color":
+            val = p.get_vec3("color", (0.5, 0.5, 0.5))
+        else:
+            val = np.full(3, p.get_float("float", 0.5), np.float32)
+        spec = TexSpec(kind=TEX_CONSTANT, value=np.asarray(val, np.float32))
+    elif kind == "checkerboard":
+        spec = TexSpec(kind=TEX_CHECKERBOARD,
+                       child0=table.get(p.get_string("texture1"), 0),
+                       child1=table.get(p.get_string("texture2"), 0),
+                       checker_filter=p.get_bool("filter", False), **map_kw)
+    elif kind == "scale":
+        if fmt == "color":
+            sc = p.get_vec3("scale", (1.0, 1.0, 1.0))
+        else:
+            sc = np.full(3, p.get_float("scale", 1.0), np.float32)
+        spec = TexSpec(kind=TEX_SCALE,
+                       child0=table.get(p.get_string("texture"), 0),
+                       scale=np.asarray(sc, np.float32))
+    elif kind == "image":
+        img = _load_texture_image(
+            _resolve_path(scene_dir, p.get_string("file")),
+            p.get_string("channel", "All"), fmt)
+        spec = TexSpec(
+            kind=TEX_IMAGE, image=img,
+            filter=_FILTERS.get(p.get_string("filter", "nearest"),
+                                FILTER_BILINEAR),
+            address=_ADDRESSES.get(p.get_string("address", "repeat"),
+                                   ADDRESS_REPEAT),
+            gamma=p.get_float("gamma", 1.0),
+            max_anisotropy=p.get_float("max_anisotropy", 10.0), **map_kw)
+    else:
+        raise ValueError(f"texture {p.get_string('name')!r}: unknown type "
+                         f"{kind!r}")
+    table[p.get_string("name")] = add(spec)
 
 
 def resolve_device(name) -> torch.device:
@@ -86,7 +188,11 @@ def load_scene(path: str, overrides: dict | None = None, device="cuda",
         "render_method": rs.get_string("render_method", "path_tracing"),
         "sample_per_pixel": rs.get_int("sample_per_pixel", 1),
         "max_ray_depth": rs.get_int("max_ray_depth", 5),
+        "ao_sample_num": rs.get_int("ao_sample_num", 25),
         "initial_radius": rs.get_float("initial_radius", -1.0),
+        # the light tracer's estimator: t1 | t0 | s1 (the reference's
+        # compile-time splatFilm alternates, src/GoblinLightTracer.h:30-46)
+        "lt_strategy": rs.get_string("lt_strategy", "t1"),
         "seed": rs.get_int("seed", 0),
     }
 
@@ -162,18 +268,7 @@ def load_scene(path: str, overrides: dict | None = None, device="cuda",
     color_tex: dict[str, int] = {}
     float_tex: dict[str, int] = {}
     for raw in doc.get("textures", []) or []:
-        p = ParamSet(raw)
-        tkind = p.get_string("type", "constant")
-        if tkind != "constant":
-            raise _unsupported(f"{tkind} texture", "7")
-        if p.get_string("format", "color") == "color":
-            color_tex[p.get_string("name")] = builder.add_color_texture(
-                TexSpec(value=np.asarray(p.get_vec3("color", (0.5, 0.5, 0.5)),
-                                         np.float32)))
-        else:
-            float_tex[p.get_string("name")] = builder.add_float_texture(
-                TexSpec(value=np.full(3, p.get_float("float", 0.5),
-                                      np.float32)))
+        _parse_texture(builder, ParamSet(raw), scene_dir, color_tex, float_tex)
 
     def color_tex_id(p, key, default=None):
         """The named color texture's row; a new constant where the name is
@@ -186,20 +281,20 @@ def load_scene(path: str, overrides: dict | None = None, device="cuda",
                 TexSpec(value=np.asarray(default, np.float32)))
         return 0
 
-    def float_tex_id(p, key, default):
+    def float_tex_id(p, key, default=None):
         name = p.get_string(key, "")
         if name in float_tex:
             return float_tex[name]
-        return builder.add_float_texture(
-            TexSpec(value=np.full(3, float(default), np.float32)))
+        if default is not None:
+            return builder.add_float_texture(
+                TexSpec(value=np.full(3, float(default), np.float32)))
+        return 0
 
     # --- materials
     materials: dict[str, int] = {}
     for raw in doc.get("materials", []) or []:
         p = ParamSet(raw)
         mkind = p.get_string("type", "lambert")
-        if p.has("bumpmap") or p.has("normalmap"):
-            raise _unsupported("bump and normal maps", "7")
         if mkind == "lambert":
             spec = MatSpec(kind=MAT_LAMBERT, tex_c0=color_tex_id(p, "Kd"))
         elif mkind == "blinn":
@@ -226,6 +321,10 @@ def load_scene(path: str, overrides: dict | None = None, device="cuda",
             raise _unsupported("subsurface material", "12")
         else:
             raise ValueError(f"unknown material type {mkind!r}")
+        if p.has("bumpmap"):
+            spec.bump_tex = float_tex_id(p, "bumpmap")
+        if p.has("normalmap"):
+            spec.normal_tex = color_tex_id(p, "normalmap")
         materials[p.get_string("name")] = builder.add_material(spec)
 
     # --- lights (an area light's instance is added after the primitives)

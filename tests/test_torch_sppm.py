@@ -263,7 +263,8 @@ def test_walk_light_paths_matches(tmp_path, monkeypatch):
     ids = np.arange(3000, dtype=np.int32)
     jem, jv = jsplat.walk_light_paths(js, jm, jnp.asarray(ids), jnp.int32(3),
                                       5, 5, mode=jb.MODE_RADIANCE)
-    tem, tv = tsplat.walk_light_paths(ts, tm, _t(ids), 3, 5, 5)
+    tem, tv = tsplat.walk_light_paths(ts, tm, _t(ids), 3, 5, 5,
+                                      mode=tb.MODE_RADIANCE)
     for k in ("p", "dir", "pdf_pos", "pdf_dir", "vertex_tp"):
         np.testing.assert_allclose(_np(tem[k]), np.asarray(jem[k]), **TOL,
                                    err_msg=k)
@@ -336,8 +337,8 @@ def _grid_both(tmp_path, monkeypatch, n_photons=400, max_len=4):
                  "dir": jnp.asarray(d)},
                 {k: jnp.asarray(v) for k, v in verts.items()})
 
-    def twalk(scene, meta, ids, it, seed, n):
-        assert n == max_len + 1
+    def twalk(scene, meta, ids, it, seed, n, mode):
+        assert n == max_len + 1 and mode == tb.MODE_RADIANCE
         return ({"lid": _t(lid), "n": _t(zeros), "dir": _t(d)},
                 {k: _t(v) for k, v in verts.items()})
 
@@ -458,7 +459,12 @@ def test_cli_renders_sppm_on_cpu(tmp_path):
 
 
 def test_render_dispatch_refuses_lt_and_bdpt(tmp_path):
+    """bdpt is refused; light_tracing, refused until the light tracer was
+    ported, renders now (tests/test_torch_lighttracer.py)."""
     scene, meta = tloader.load_scene(_two_planes(tmp_path), device="cpu")
-    for method in ("light_tracing", "bdpt"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tsplat.render_dispatch(scene, meta, method)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tsplat.render_dispatch(scene, meta, "bdpt")
+    img = tsplat.render_dispatch(scene, meta, "light_tracing")
+    assert bool(img.isfinite().all()) and float(img.mean()) > 0
+    with pytest.raises(ValueError, match="not a splatting method"):
+        tsplat.render_dispatch(scene, meta, "ao")

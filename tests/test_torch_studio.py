@@ -30,6 +30,7 @@ from goblin_tpu_torch.integrators import common as tcommon
 from goblin_tpu_torch.integrators import sppm as tsppm
 from goblin_tpu_torch.render import make_li as t_make_li
 from goblin_tpu_torch.scene import loader as tloader
+from goblin_tpu_torch.shading import bsdf as tb
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STUDIO = os.path.join(REPO, "examples", "bunny_studio.json")
@@ -188,7 +189,8 @@ def test_studio_light_walk_matches(studio):
     ids = np.arange(4000, dtype=np.int32)
     jem, jv = jsplat.walk_light_paths(js, jm, jnp.asarray(ids), jnp.int32(3),
                                       5, 5, mode=jb.MODE_RADIANCE)
-    tem, tv = tsplat.walk_light_paths(ts, tm, torch.as_tensor(ids), 3, 5, 5)
+    tem, tv = tsplat.walk_light_paths(ts, tm, torch.as_tensor(ids), 3, 5, 5,
+                                      mode=tb.MODE_RADIANCE)
     np.testing.assert_array_equal(_np(tem["lid"]), np.asarray(jem["lid"]))
     assert set(_np(tem["lid"]).tolist()) == {0, 1, 2}
     for k in ("p", "dir", "pdf_pos", "pdf_dir", "vertex_tp"):

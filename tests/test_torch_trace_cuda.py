@@ -1,6 +1,7 @@
 """The CUDA trace kernels (the wide kernel at widths 8 and 4, their stats
 instances, and the binary BVH) against their plain PyTorch versions, on the
-card.
+card; ambient occlusion's 1,638,400-ray any-hit launch against the plain
+version.
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. This file imports
 neither JAX nor goblin_tpu, so it runs on a machine without them:
@@ -266,3 +267,48 @@ def test_bunny_render_on_card_matches_cpu(cuda, name, wide):
     close = np.abs(gpu - cpu) <= 1e-4 + 1e-3 * np.abs(cpu)
     assert close.all(axis=-1).mean() >= 0.99
     assert abs(gpu.mean() - cpu.mean()) <= 1e-3 * cpu.mean()
+
+
+@pytest.mark.parametrize("width", [8, 4])
+def test_ao_any_hit_launch_matches_plain(cuda, width):
+    """Ambient occlusion's launch, the largest any path makes: 65,536
+    pixels x 25 directions = 1,638,400 any-hit rays from the gallery
+    scene's first chunk, as integrators/ao.py casts them. One launch is
+    bit-equal to the plain version on a sampled 1 in 16 of the rays and
+    equal to the same rays in launches of 65,536."""
+    from goblin_tpu_torch.integrators.ao import make_li as make_ao
+    from goblin_tpu_torch.scene import intersect as scn
+
+    scene, meta = load_scene(os.path.join(REPO, "examples",
+                                          "bunny_gallery.json"),
+                             {"render_method": "ao"}, device=cuda,
+                             trace_wide=width)
+    caught = []
+    trace_rays = scn.trace_rays
+
+    def catching(scene, meta, o, d, mint, maxt, any_hit=False):
+        if any_hit:
+            caught.append([r.contiguous() for r in (o, d, mint, maxt)])
+        return trace_rays(scene, meta, o, d, mint, maxt, any_hit=any_hit)
+
+    pix = torch.arange(1 << 16, dtype=torch.int32, device=cuda)
+    x, y = common.pixel_samples(0, pix, meta.camera.film.x_res, 0, 1)
+    scn.trace_rays = catching
+    try:
+        make_ao(25)(scene, meta, meta.camera.generate_ray(x, y), pix, 0, 0)
+    finally:
+        scn.trace_rays = trace_rays
+    (rays,) = caught
+    n = rays[0].shape[0]
+    assert n == 25 << 16
+    tt.reset_launches()
+    whole = tt.trace(scene, *rays, any_hit=True, width=width)
+    assert tt.launches[f"trace_bvh{width}"] == 1
+    parts = [tt.trace(scene, *(r[c:c + (1 << 16)] for r in rays),
+                      any_hit=True, width=width) for c in range(0, n, 1 << 16)]
+    assert tt.launches[f"trace_bvh{width}"] == 26
+    assert torch.equal(whole.hit, torch.cat([p.hit for p in parts]))
+    some = [r[5::16].contiguous() for r in rays]
+    plain = tt.trace_plain(scene, *some, any_hit=True, width=width)
+    assert torch.equal(whole.hit[5::16], plain.hit)
+    assert 0.02 < whole.hit.float().mean().item() < 0.9
