@@ -8,9 +8,9 @@ pass of goblin_tpu_torch's render of a scene.
 The scene renders through render_context with 4 passes (path tracing, ao,
 whitted) or 4 iterations (SPPM) at its own size, and at its own depth
 unless --depth gives max_ray_depth: the first warms up, the second runs
-under the profiler, the next two give the wall time without it. Light
-tracing reports a chunk of 16,384 paths at a time: its "passes" here are
-the first four chunks of a 4-spp render.
+under the profiler, the next two give the wall time without it. Light tracing and
+BDPT report a chunk at a time (16,384 light paths; 65,536 camera samples):
+their "passes" here are the first four chunks of a 4-spp render.
 Printed: the card's name and power limit, the profiled pass's wall
 seconds, the device kernels it launched and their summed device time (so
 the device's busy share of the pass), the trace kernels' launches and

@@ -70,7 +70,19 @@ Phases, each printed on its own lines, and any failure exits non-zero:
      paths x (4 walk traces + 5 camera connections) = 108 launches; 48 x 36
      card against CPU (the film scatter adds in another order on the card,
      within the image bar), and the t0 and s1 estimators against t1 there
-     (image means within 30% / 10%).
+     (image means within 30% / 10%);
+ 17. the studio scene under bdpt, 512 x 384, 1 spp, depth 5, through
+     render_context at width 8: 3 chunks of 65,536 camera samples x (2 x 5
+     walk intersects + 1 + 2 + 3 + 4 + 5 connections) = 75 launches; 48 x
+     36 card against CPU; BDPT against PT at 48 x 36 on the card on
+     tests/test_bdpt.py's scene (image means within its 15%), and on the
+     studio scene, where goblin_tpu's two estimators disagree (ROADMAP
+     Queue 3), BDPT's mean held 8-30% above PT's;
+ 18. examples/bunny_sky.json (the studio scene under an image-based light)
+     with path_tracing at 512 x 384, 4 spp, depth 5 at widths 8 and 4: 21
+     launches a chunk, 252 a render, as the studio scene; the map's
+     light-pick probability; 48 x 36 card against CPU under path_tracing,
+     light_tracing, bdpt, sppm (1 iteration) and whitted (depth 2).
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Each kernel's row carries its time (CUDA events over launches queued behind
 a spinning kernel, so the host's launch rate stays out of it), its plain
@@ -94,6 +106,7 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 BUNNY = os.path.join(REPO, "examples", "bunny.json")
 STUDIO = os.path.join(REPO, "examples", "bunny_studio.json")
 GALLERY = os.path.join(REPO, "examples", "bunny_gallery.json")
+SKY = os.path.join(REPO, "examples", "bunny_sky.json")
 SETTINGS = {"render_method": "path_tracing", "max_ray_depth": 5,
             "sample_per_pixel": 4}
 CHUNK = 1 << 16
@@ -125,6 +138,24 @@ LT_CHUNK = 1 << 14
 LT_CHECK_SPP = {"t1": 64, "s1": 64, "t0": 2400}
 LT_CHECK_CHUNK = 1 << 18
 LT_CHECK_RTOL = {"s1": 0.10, "t0": 0.30}
+# phase 17: BDPT on the studio scene, and its cross-check against PT at
+# 48 x 36 on tests/test_bdpt.py's scene, at that test's spp and tolerance;
+# on the studio scene, (BDPT - PT) / PT within a band around the 0.157 and
+# 0.184 of two runs on the card, so that a drift of either estimator shows
+BDPT_SETTINGS = {"render_method": "bdpt", "sample_per_pixel": 1,
+                 "max_ray_depth": 5}
+BDPT_CHECK_SPP = {"bdpt": 16, "path_tracing": 32}
+BDPT_CHECK_RTOL = 0.15
+BDPT_STUDIO_GAP = (0.08, 0.30)
+# phase 18: the sky scene's 48 x 36 checks, one per method
+SKY_CHECKS = ({"render_method": "path_tracing", "sample_per_pixel": 1,
+               "max_ray_depth": 5},
+              {"render_method": "light_tracing", "sample_per_pixel": 1},
+              dict(BDPT_SETTINGS),
+              {"render_method": "sppm", "sample_per_pixel": 1,
+               "max_ray_depth": 5},
+              {"render_method": "whitted", "sample_per_pixel": 1,
+               "max_ray_depth": 2})
 
 
 class SmokeFailure(Exception):
@@ -1211,6 +1242,139 @@ def light_tracing_estimators():
                            f"{means[strategy]} vs {means['t1']}")
 
 
+def bdpt_launches_per_chunk(depth):
+    """Trace launches BDPT makes for one chunk: depth closest-hit intersects
+    of each walk, then one any-hit connection for every strategy with s >=
+    1 and t >= 1, path length L having L of them."""
+    return 2 * depth + depth * (depth + 1) // 2
+
+
+def bdpt_path():
+    """Phase 17: the studio scene under bdpt through render_context.
+    Returns (launches, seconds of the chunks)."""
+    from goblin_tpu_torch.integrators import bdpt
+
+    img, meta, launches, chunks_s = counted_render(STUDIO, BDPT_SETTINGS)
+    spec = meta.camera.film
+    depth = meta.settings["max_ray_depth"]
+    n_chunks = -(-spec.x_res * spec.y_res // CHUNK)
+    per_chunk = bdpt_launches_per_chunk(depth)
+    check(len(chunks_s) == n_chunks, f"{len(chunks_s)} chunks reported")
+    check(meta.has_lens and not meta.camera.is_delta,
+          "the studio scene lost its lens")
+    print(f"  {spec.x_res}x{spec.y_res} 1 spp depth {depth}, {n_chunks} "
+          f"chunks of {CHUNK} camera samples: seconds a chunk "
+          f"{' '.join(f'{c:.3f}' for c in chunks_s)} (the first with the "
+          f"load), {chunks_s.sum():.3f} s the pass; launches {launches} "
+          f"(expected {per_chunk * n_chunks}: {per_chunk} a chunk); image "
+          f"mean {img.mean():.6f} max {img.max():.4f}; default chunk "
+          f"{bdpt.render_bdpt.__defaults__[0]}", flush=True)
+    check(launches == no_launches(trace_bvh8=per_chunk * n_chunks),
+          f"bdpt launches {launches}, expected {per_chunk * n_chunks} of "
+          "trace_bvh8")
+    return launches, chunks_s
+
+
+def bdpt_plane_scene(out_dir):
+    """tests/test_bdpt.py's scene (a floor under a small area light, depth
+    3, 48 x 36) written into out_dir -> its path."""
+    doc = {
+        "render_setting": {"render_method": "bdpt", "sample_per_pixel": 1,
+                           "max_ray_depth": 3},
+        "camera": {"position": [0, 1.4, -2.4], "euler": [20, 0, 0],
+                   "rotation_order": "xyz", "fov": 48.0,
+                   "film": {"resolution": [48, 36]},
+                   "filter": {"type": "box", "width": [0.5, 0.5]}},
+        "geometries": [{"name": "floor", "type": "mesh",
+                        "file": "plane.obj"}],
+        "textures": [{"format": "color", "name": "grey", "type": "constant",
+                      "color": [0.65, 0.65, 0.65]}],
+        "materials": [{"name": "diffuse", "type": "lambert", "Kd": "grey"}],
+        "primitives": [{"type": "model", "name": "fm", "geometry": "floor",
+                        "material": "diffuse"},
+                       {"type": "instance", "name": "fi", "model": "fm",
+                        "scale": [30, 30, 30]}],
+        "lights": [{"name": "panel", "type": "area",
+                    "radiance": [25, 25, 25], "geometry": "floor",
+                    "position": [0.0, 2.2, 0.2], "euler": [180.0, 0.0, 0.0],
+                    "scale": [0.35, 0.35, 0.35]}],
+    }
+    with open(os.path.join(out_dir, "plane.obj"), "w") as f:
+        f.write("v -1 0 1\nv 1 0 1\nv -1 0 -1\nv 1 0 -1\n"
+                "vn 0 1 0\nf 1//1 2//1 3//1\nf 3//1 2//1 4//1\n")
+    path = os.path.join(out_dir, "plane.json")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
+
+
+def bdpt_against_pt(path, band):
+    """Phase 17: BDPT and PT on the card at 48 x 36 -> (BDPT - PT) / PT of
+    the image means, held within band."""
+    from goblin_tpu_torch.integrators import bdpt, common
+    from goblin_tpu_torch.render import make_li
+    from goblin_tpu_torch.scene.loader import load_scene
+
+    means = {}
+    for method, spp in BDPT_CHECK_SPP.items():
+        scene, meta = load_scene(path, {"render_method": method},
+                                 device="cuda")
+        small_film(meta)
+        t = time.perf_counter()
+        if method == "bdpt":
+            img = bdpt.render_bdpt(scene, meta, spp=spp)
+        else:
+            img = common.render(scene, meta, make_li(meta), spp=spp)
+        means[method] = img.mean().item()
+        print(f"  48x36 {os.path.basename(path)} depth "
+              f"{meta.settings['max_ray_depth']}, {method} {spp} spp: "
+              f"{time.perf_counter() - t:.2f} s, image mean "
+              f"{means[method]:.6f}", flush=True)
+    gap = (means["bdpt"] - means["path_tracing"]) / means["path_tracing"]
+    print(f"  bdpt vs path_tracing: (bdpt - pt) / pt = {gap:.4f} "
+          f"(allowed {band[0]} to {band[1]})", flush=True)
+    check(band[0] <= gap <= band[1],
+          f"bdpt and path tracing out of their band: {means}")
+    return gap
+
+
+def sky_path():
+    """Phase 18: the sky scene's path tracing at widths 8 and 4. Returns
+    {width: launches}."""
+    counts = {}
+    for wide in (8, 4):
+        img, meta, launches, passes = counted_render(SKY, SETTINGS, wide,
+                                                     chunk_size=CHUNK)
+        check(meta.has_env and meta.has_null and not meta.all_delta_lights,
+              "the sky scene lost a feature")
+        spec = meta.camera.film
+        spp = meta.settings["sample_per_pixel"]
+        per_chunk = studio_launches_per_chunk(meta.settings["max_ray_depth"])
+        want = per_chunk * -(-spec.x_res * spec.y_res // CHUNK) * spp
+        print(f"  width {wide}: {spec.x_res}x{spec.y_res} {spp} spp: seconds "
+              f"per pass {' '.join(f'{p:.4f}' for p in passes)} (the first "
+              f"with the load); launches {launches} (expected {want}: "
+              f"{per_chunk} a chunk); image mean {img.mean():.6f} max "
+              f"{img.max():.4f}", flush=True)
+        check(launches == no_launches(**{f"trace_bvh{wide}": want}),
+              f"sky width {wide}: launches {launches}, expected {want} of "
+              f"trace_bvh{wide} and no other")
+        counts[wide] = launches
+    return counts
+
+
+def env_pick_probability(path=SKY):
+    """The image-based light's share of the light-pick CDF."""
+    from goblin_tpu_torch.scene.loader import load_scene
+
+    scene, meta = load_scene(path, device="cuda")
+    power = scene["lights"]["power"]
+    share = float(power[meta.env_light_id] / power.sum())
+    print(f"  the map's light-pick probability {share:.4f} (powers "
+          f"{[round(float(v), 4) for v in power]})", flush=True)
+    check(0.2 <= share <= 0.8, f"env pick probability {share}")
+
+
 def run():
     import torch
 
@@ -1308,6 +1472,21 @@ def run():
                             "sample_per_pixel": 1})
     light_tracing_estimators()
 
+    print("[17] studio scene, BDPT through render_context:", flush=True)
+    bdpt_launches, bdpt_s = bdpt_path()
+    reference_check(BDPT_SETTINGS, STUDIO)
+    with tempfile.TemporaryDirectory() as tmp:
+        bdpt_against_pt(bdpt_plane_scene(tmp),
+                        (-BDPT_CHECK_RTOL, BDPT_CHECK_RTOL))
+    bdpt_against_pt(STUDIO, BDPT_STUDIO_GAP)
+
+    print("[18] sky scene (an image-based light), path tracing through "
+          "render_context, and every method at 48 x 36:", flush=True)
+    env_pick_probability()
+    sky_counts = sky_path()
+    for ovr in SKY_CHECKS:
+        reference_check(ovr, SKY)
+
     print(f"  clocks.sm, power.draw, temperature: "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
     # every row's ms / plain_ms: the full-frame primary closest-hit launch
@@ -1341,12 +1520,15 @@ def run():
             "gallery ao": ao_launches,
             f"gallery whitted depth {WHITTED_DEPTH}": whitted_launches,
             "gallery light_tracing": lt_launches,
+            "studio bdpt": bdpt_launches,
+            "sky path_tracing": sky_counts[8],
         },
         "trace_bvh2": {"bunny sppm": sppm_counts[1]},
         "trace_bvh4": {
             "studio path_tracing": studio_counts[4],
             "studio sppm": studio_sppm_launches,
             "gallery path_tracing": gallery_counts[4],
+            "sky path_tracing": sky_counts[4],
         },
     }
     for r, width in ((row, 8), (k2_row, 1), (stats_row, 8)):
@@ -1377,7 +1559,9 @@ def run():
     row["seconds"] = {"gallery ao pass with the load": ao_s,
                       f"gallery whitted depth {WHITTED_DEPTH} pass with the "
                       "load": whitted_s,
-                      "gallery light_tracing chunks 2-12": lt_s}
+                      "gallery light_tracing chunks 2-12": lt_s,
+                      "studio bdpt chunks 1-3 with the load": [
+                          float(c) for c in bdpt_s]}
     # no render path runs the stats instance: its row counts phase 7's census
     stats_row["launches"] = stats_launches
     stats_row["launches_counted_in"] = "phase 7's visit census"

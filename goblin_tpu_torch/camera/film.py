@@ -161,8 +161,12 @@ def splat_taps(spec: FilmSpec, x, y, L, normalized=False):
         w = w / f.normalize_term()
     # a weight of 0 times a non-finite sample is still NaN: zero L first
     L = torch.where(nan_ok[:, None], L, 0.0)
-    flat_idx = (torch.clamp(py, 0, spec.y_res - 1) * spec.x_res
-                + torch.clamp(px, 0, spec.x_res - 1)).reshape(-1)
+    # a zero tap adds nothing wherever it lands: spread them over the film,
+    # so that the taps of samples sent off the film (-1e9) do not all add
+    # into one pixel, one atomic after another
+    n_pix = spec.x_res * spec.y_res
+    spread = torch.arange(px.numel(), device=x.device).reshape(px.shape) % n_pix
+    flat_idx = torch.where(inside, py * spec.x_res + px, spread).reshape(-1)
     return flat_idx, w.reshape(-1), (w[..., None] * L[:, None, None, :]
                                      ).reshape(-1, 3)
 

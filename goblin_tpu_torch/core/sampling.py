@@ -1,5 +1,5 @@
-"""Sampling warps, MIS weights and the radical inverse the path tracer and
-SPPM use (port of part of goblin_tpu/core/sampling.py).
+"""Sampling warps, MIS weights, the 1-D and 2-D CDF tables and the radical
+inverse the integrators use (port of part of goblin_tpu/core/sampling.py).
 
 Warps take uniform [0, 1) samples of any batch shape and return matching
 outputs, with the pdfs as separate functions (reference
@@ -111,6 +111,78 @@ def build_cdf_1d(f):
     cdf = torch.cumsum(f, dim=-1) * dx / safe_int
     cdf = torch.cat([torch.zeros_like(cdf[..., :1]), cdf], dim=-1)
     return {"func": f, "cdf": cdf, "integral": integral[..., 0], "count": n}
+
+
+def _cdf_find(cdf, u):
+    """The last index i with cdf[i] <= u, clipped to the cells: a
+    right-sided search of the cells' lower edges, which gives goblin_tpu's
+    count of edges <= u on a monotone table, flat runs included."""
+    n = cdf.shape[-1] - 1
+    idx = torch.searchsorted(cdf[:-1].contiguous(), u, right=True)
+    return torch.clamp(idx - 1, 0, n - 1)
+
+
+def sample_cdf_discrete(table, u):
+    """Pick index i with probability f[i] / sum(f) -> (i, pdf_i)."""
+    idx = _cdf_find(table["cdf"], u)
+    pdf = table["func"][idx] / torch.clamp(
+        table["integral"] * table["count"], min=1e-30)
+    return idx, pdf
+
+
+def sample_cdf_continuous(table, u):
+    """Invert the piecewise-constant cdf -> (x in [0, 1), pdf, idx)."""
+    cdf = table["cdf"]
+    idx = _cdf_find(cdf, u)
+    c0, c1 = cdf[idx], cdf[idx + 1]
+    d = torch.where(c1 > c0, (u - c0) / torch.clamp(c1 - c0, min=1e-30), 0.0)
+    x = (idx.to(torch.float32) + d) / table["count"]
+    pdf = table["func"][idx] / torch.clamp(table["integral"], min=1e-30)
+    return x, pdf, idx
+
+
+def build_cdf_2d(f):
+    """f (H, W) -> a conditional table along W for each row and a marginal
+    one over the rows' integrals (reference CDF2D,
+    src/GoblinSampler.cpp:359-405). "keys" holds every row's lower edges in
+    one ascending int64 table: the row above bit 31, below it the edge's
+    float32 bits (ordered as the non-negative floats they encode)."""
+    f = torch.as_tensor(f, dtype=torch.float32)
+    h, w = f.shape
+    cond = build_cdf_1d(f)
+    edges = cond["cdf"][:, :-1].contiguous().view(torch.int32).to(torch.int64)
+    rows = torch.arange(h, dtype=torch.int64, device=f.device)[:, None]
+    return {"cond": cond, "marg": build_cdf_1d(cond["integral"]),
+            "shape": (h, w), "keys": ((rows << 31) + edges).reshape(-1)}
+
+
+def sample_cdf_2d(table, u1, u2):
+    """-> ((u, v) in [0, 1)^2 (..., 2), pdf with respect to the unit
+    square's area): the row by u1, then the column in that row by u2 --
+    goblin_tpu's search of the row's table, made as one search of all the
+    rows' keys with the lane's row above bit 31, so that no lane gathers
+    its row."""
+    v, pdf_v, row = sample_cdf_continuous(table["marg"], u1)
+    cond = table["cond"]
+    w = cond["count"]
+    q = (row << 31) + u2.view(torch.int32).to(torch.int64)
+    col = torch.searchsorted(table["keys"], q, right=True) - row * w
+    col = torch.clamp(col - 1, 0, w - 1)
+    c0, c1 = cond["cdf"][row, col], cond["cdf"][row, col + 1]
+    d = torch.where(c1 > c0, (u2 - c0) / torch.clamp(c1 - c0, min=1e-30), 0.0)
+    uu = (col.to(torch.float32) + d) / w
+    pdf_u = cond["func"][row, col] / torch.clamp(cond["integral"][row],
+                                                 min=1e-30)
+    return torch.stack([uu, v], dim=-1), pdf_v * pdf_u
+
+
+def pdf_cdf_2d(table, u, v):
+    """The pdf at (u, v) with respect to the unit square's area."""
+    h, w = table["shape"]
+    row = torch.clamp((v * h).to(torch.int64), 0, h - 1)
+    col = torch.clamp((u * w).to(torch.int64), 0, w - 1)
+    return table["cond"]["func"][row, col] / torch.clamp(
+        table["marg"]["integral"], min=1e-30)
 
 
 def fma_f32(a, b, c):

@@ -96,6 +96,12 @@ def mat3_apply(m, v):
          for i in range(3)], dim=-1)
 
 
+def mat3_apply_t(m, v):
+    """The transpose of m (3, 3) applied to v (..., 3): columns times the
+    components, summed in goblin_tpu's order."""
+    return (m[0] * v[..., 0:1] + m[1] * v[..., 1:2] + m[2] * v[..., 2:3])
+
+
 def quat_to_matrix_np(q) -> np.ndarray:
     """(4,) wxyz quaternion -> (3, 3) float32 rotation, applied M @ v
     (reference Quaternion::toMatrix)."""

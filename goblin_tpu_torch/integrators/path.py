@@ -7,8 +7,11 @@ delta lights), and one BSDF continuation sample whose hit doubles as the
 BSDF-side light contribution. Specular lobes take full weight on the BSDF
 side. No Russian roulette: max_ray_depth - 1 bounces. Inactive lanes are
 masked. A shadow ray punches through mask (null-lobe) surfaces with their
-attenuation. When every light is a delta light, a BSDF ray can never hit
-an emitter, so the last bounce skips its continuation trace.
+attenuation. An environment map lights primary misses; a pick of the
+image-based light samples the map for NEE (shadow maxt 3e37), and a BSDF
+ray that escapes takes the map's radiance with MIS against the map's pdf.
+When every light is a delta light and there is no environment, a BSDF ray
+can never hit an emitter, so the last bounce skips its continuation trace.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import torch
 from ..core import vecmath as vm
 from ..core.rng import hash_uniform
 from ..core.sampling import power_heuristic
+from ..lights import envmap
 from ..lights import lights as lt
 from ..scene import intersect as scn
 from ..shading import bsdf as bx
@@ -41,10 +45,12 @@ def _em_tri_data(scene):
 
 
 def _env_le(scene, meta, d):
-    """Environment radiance for direction d: zeros, since the loader
-    refuses image-based lights (ROADMAP Queue 1 item 12)."""
-    return torch.zeros(d.shape[:-1] + (3,), dtype=torch.float32,
-                       device=d.device)
+    """Environment radiance for direction d (zeros without an image-based
+    light)."""
+    if not meta.has_env:
+        return torch.zeros(d.shape[:-1] + (3,), dtype=torch.float32,
+                           device=d.device)
+    return envmap.eval_env(scene, meta, d)
 
 
 def _area_light_Le(scene, frag, wo):
@@ -71,7 +77,8 @@ def make_li(meta, max_depth=None):
                              ray["maxt"], dxd=ray.get("dxd"),
                              dyd=ray.get("dyd"))
         L = torch.where(frag["hit"][:, None],
-                        _area_light_Le(scene, frag, frag["wo"]), 0.0)
+                        _area_light_Le(scene, frag, frag["wo"]),
+                        _env_le(scene, meta, ray["d"]))
         if meta.n_lights == 0:
             return L
 
@@ -94,6 +101,15 @@ def make_li(meta, max_depth=None):
                 u1, u2 = stratified_2d(seed, pixel_ids, s_idx, n_spp, b,
                                        DIM_LIGHT_U1, DIM_LIGHT_U2)
             ls = lt.sample_li(lights, tri_data, lid, p, eps, u1, u2)
+            if meta.has_env:
+                # a pick of the image-based light samples the map
+                is_ibl = lights["type"][lid] == lt.LIGHT_IBL
+                env_li, env_wi, env_pdf = envmap.sample_env(scene, meta, u1, u2)
+                ls["Li"] = torch.where(is_ibl[:, None], env_li, ls["Li"])
+                ls["wi"] = torch.where(is_ibl[:, None], env_wi, ls["wi"])
+                ls["pdf"] = torch.where(is_ibl, env_pdf, ls["pdf"])
+                ls["shadow_maxt"] = torch.where(is_ibl, 3.0e37,
+                                                ls["shadow_maxt"])
             f_l = bx.bsdf_eval(mat, ns, wo, ls["wi"], bx.BSDF_ALL)
             consider = (active & (ls["pdf"] > 0.0)
                         & (ls["Li"] > 0.0).any(dim=-1)
@@ -153,6 +169,20 @@ def make_li(meta, max_depth=None):
                                 / torch.clamp(pdf_b, min=1e-20))[:, None],
                 0.0,
             )
+            if meta.has_env:
+                # an escaped BSDF ray, with the image-based light picked:
+                # the map's radiance, MIS against its pdf
+                env_w = torch.where(
+                    bs["is_specular"] | bs["is_null"], 1.0,
+                    power_heuristic(1.0, pdf_b, 1.0,
+                                    envmap.pdf_env(scene, meta, wi)))
+                is_ibl = lights["type"][lid] == lt.LIGHT_IBL
+                Ld_b = Ld_b + torch.where(
+                    (cont_ok & ~frag2["hit"] & is_ibl)[:, None],
+                    f_b * _env_le(scene, meta, wi)
+                    * (vm.absdot(wi, ns) * env_w
+                       / torch.clamp(pdf_b, min=1e-20))[:, None],
+                    0.0)
             L = L + torch.where(
                 active[:, None],
                 throughput * (Ld + Ld_b)

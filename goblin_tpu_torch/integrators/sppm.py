@@ -18,8 +18,9 @@ splatted at the pixel centres.
 Camera-path dimensions use qmc_uniform: prime-base radical inverses of the
 iteration index with a per-pixel Cranley-Patterson rotation, bit-equal to
 goblin_tpu's. Each bounce traces the whole frame at once; the photon pass
-runs in chunks of photons. The drain is a loop on the host whose
-condition reads the device once per turn.
+runs in chunks of photons. The drain is a loop on the host over the
+fullest cell's entries, whose count it reads from the device once a
+drain.
 """
 
 from __future__ import annotations
@@ -273,8 +274,10 @@ def make_photon_passes(scene, meta, seed, max_len, n_pix):
         ns, wo = vp["ns"], vp["wo"]
         r2 = radius * radius
         budget = float(max_len) - vp["len"].to(torch.float32)
-        k = 0
-        while k < E and bool((start + k < end).any()):
+        # the turns of goblin_tpu's while loop (any lane with start + k <
+        # end), counted with one read: the fullest cell's entries
+        n_turns = min(int((end - start).max()), E)
+        for k in range(n_turns):
             row = rows[entry_idx[torch.clamp(start + k, max=E - 1)].long()]
             dp, wi, wgt, plen = row[:, 0:3], row[:, 3:6], row[:, 6:9], row[:, 9]
             ok = ((start + k < end) & (vm.squared_length(dp - p) <= r2)
@@ -282,7 +285,6 @@ def make_photon_passes(scene, meta, seed, max_len, n_pix):
             fs = bx.bsdf_eval(mat_v, ns, wo, wi, bx.BSDF_ALL)
             Phi = Phi + torch.where(ok[:, None], fs * wgt, 0.0)
             Mi = Mi + ok.to(torch.float32)
-            k += 1
         return Phi, Mi
 
     return deposit_chunk, vp_drain

@@ -16,7 +16,8 @@ children exist only where a specular-reflective material (transparent or
 mirror, mask-wrapped included) is present, refraction children only with a
 transparent one. A Lambert / Blinn scene is a single node; with a
 transparent material the tree is the reference's own, 2^(depth + 1) - 1
-nodes.
+nodes. A node whose ray escapes takes the environment map's radiance, and
+the image-based light's direct light samples the map.
 """
 
 from __future__ import annotations
@@ -26,13 +27,14 @@ import torch
 from ..core import vecmath as vm
 from ..core.rng import hash_uniform
 from ..core.sampling import power_heuristic
+from ..lights import envmap
 from ..lights import lights as lt
 from ..scene import intersect as scn
 from ..shading import bsdf as bx
 from ..shading.bsdf import MAT_MIRROR, MAT_TRANSPARENT
 from .common import DIM_BASE
 from .materials import gather_material
-from .path import _area_light_Le, _em_tri_data
+from .path import _area_light_Le, _em_tri_data, _env_le
 
 # a child's sample streams are keyed by this plus its number in the tree
 NODE_TAG_BASE = 0x100
@@ -71,12 +73,21 @@ def _direct_light(scene, meta, frag, mat, active, pixel_ids, s_idx, seed,
         sn = 1
         if li_id < len(meta.light_sample_nums):
             sn = max(1, meta.light_sample_nums[li_id])
+        is_env_light = meta.has_env and li_id == meta.env_light_id
         lid = torch.full((R,), li_id, dtype=torch.int32, device=dev)
         Ld_i = torch.zeros((R, 3), dtype=torch.float32, device=dev)
         for _ in range(sn):
             # --- the light-sample side
-            ls = lt.sample_li(lights, tri_data, lid, p, eps, u(dim0),
-                              u(dim0 + 1))
+            if is_env_light:
+                li_e, wi_e, pdf_e = envmap.sample_env(scene, meta, u(dim0),
+                                                      u(dim0 + 1))
+                ls = {"Li": li_e, "wi": wi_e, "pdf": pdf_e,
+                      "shadow_maxt": torch.full((R,), 3.0e37, device=dev),
+                      "is_delta": torch.zeros(R, dtype=torch.bool,
+                                              device=dev)}
+            else:
+                ls = lt.sample_li(lights, tri_data, lid, p, eps, u(dim0),
+                                  u(dim0 + 1))
             f_l = bx.bsdf_eval(mat, ns, wo, ls["wi"], nee_type)
             consider = (active & (ls["pdf"] > 0.0)
                         & (ls["Li"] > 0.0).any(dim=-1)
@@ -103,12 +114,18 @@ def _direct_light(scene, meta, frag, mat, active, pixel_ids, s_idx, seed,
             fragb = scn.intersect(scene, meta, p, bsn["wi"],
                                   torch.where(b_ok, eps, scn.BIG_T),
                                   torch.where(b_ok, 3.0e37, 0.0))
-            cos_l = vm.dot(fragb["ns"], -bsn["wi"])
-            pdf_l_b = lt.pdf_li(lights, lid, p, bsn["wi"], fragb["t"], cos_l,
-                                fragb["light"])
-            Li_b = _area_light_Le(scene, fragb, -bsn["wi"])
-            got = (b_ok & fragb["hit"] & (fragb["light"] == lid)
-                   & (pdf_l_b > 0.0))
+            if is_env_light:
+                # the map, where the BSDF ray escapes
+                pdf_l_b = envmap.pdf_env(scene, meta, bsn["wi"])
+                Li_b = _env_le(scene, meta, bsn["wi"])
+                got = b_ok & ~fragb["hit"] & (pdf_l_b > 0.0)
+            else:
+                cos_l = vm.dot(fragb["ns"], -bsn["wi"])
+                pdf_l_b = lt.pdf_li(lights, lid, p, bsn["wi"], fragb["t"],
+                                    cos_l, fragb["light"])
+                Li_b = _area_light_Le(scene, fragb, -bsn["wi"])
+                got = (b_ok & fragb["hit"] & (fragb["light"] == lid)
+                       & (pdf_l_b > 0.0))
             w_f = power_heuristic(1.0, bsn["pdf"], 1.0, pdf_l_b)
             Ld_i = Ld_i + torch.where(
                 got[:, None],
@@ -128,22 +145,26 @@ def make_li(meta, max_depth=None):
     GoblinRenderer.cpp:618-620)."""
     if max_depth is None:
         max_depth = int(meta.settings.get("max_ray_depth", 5))
-    if meta.has_env or meta.has_bssrdf:
+    if meta.has_bssrdf:
         raise NotImplementedError(
-            "Whitted's environment and subsurface arms are not in "
-            "goblin_tpu_torch yet (ROADMAP Queue 1 item 12)")
+            "Whitted's subsurface arm is not in goblin_tpu_torch yet "
+            "(ROADMAP Queue 1 item 12c)")
     can_reflect, can_transmit = _specular_caps(meta)
 
     def li(scene, meta_, ray, pixel_ids, s_idx, seed):
         R = ray["o"].shape[0]
         node_counter = [0]
 
-        def radiance(frag, active, depth, node_tag):
+        def radiance(frag, d_in, active, depth, node_tag):
             """Li of a wavefront segment that is intersected already (the
-            reference's Li body, GoblinWhitted.cpp:13-42)."""
+            reference's Li body, GoblinWhitted.cpp:13-42); d_in, the
+            incoming direction, looks the environment up on a miss."""
             hit = frag["hit"] & active
             L = torch.where(hit[:, None],
                             _area_light_Le(scene, frag, frag["wo"]), 0.0)
+            if meta.has_env:
+                L = L + torch.where((active & ~frag["hit"])[:, None],
+                                    _env_le(scene, meta, d_in), 0.0)
             if meta.n_lights == 0:
                 return L
 
@@ -171,7 +192,7 @@ def make_li(meta, max_depth=None):
                                       torch.where(ok, frag["eps"], scn.BIG_T),
                                       torch.where(ok, 3.0e37, 0.0))
                 node_counter[0] += 1
-                Lr = radiance(frag2, ok, depth + 1,
+                Lr = radiance(frag2, bs["wi"], ok, depth + 1,
                               NODE_TAG_BASE + node_counter[0])
                 w = bs["f"] * (vm.absdot(bs["wi"], frag["ns"])
                                / torch.clamp(bs["pdf"], min=1e-20))[:, None]
@@ -187,7 +208,8 @@ def make_li(meta, max_depth=None):
         frag = scn.intersect(scene, meta, ray["o"], ray["d"], ray["mint"],
                              ray["maxt"], dxd=ray.get("dxd"),
                              dyd=ray.get("dyd"))
-        return radiance(frag, torch.ones(R, dtype=torch.bool,
-                                         device=frag["hit"].device), 0, 0)
+        return radiance(frag, ray["d"],
+                        torch.ones(R, dtype=torch.bool,
+                                   device=frag["hit"].device), 0, 0)
 
     return li

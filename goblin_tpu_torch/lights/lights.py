@@ -9,10 +9,13 @@ emits one-sided Le (dot(n, w) > 0) from world-space triangles, picked by
 an area CDF inside the light's segment of the emissive-triangle table and
 sampled uniformly (solid-angle pdf r^2 / (|cos| A)), or from one analytic
 sphere, cone-sampled from outside and area-sampled from inside (reference
-GoblinSphere.cpp:108-150). The emission side (sample_emission,
-eval_emission, pdf_emission_*) starts and weighs light walks. Rows are
-plain gathers by light id. Environment lights are refused by the loader
-(ROADMAP Queue 1 item 12), so their arms are absent.
+GoblinSphere.cpp:108-150). An image-based light's radiance and sampling
+live in lights/envmap.py: here it has a power (the map's mean luminance x
+pi x 4 pi r^2 on the world's bounding sphere), gives Li 0 to sample_li
+(the integrators sample the map themselves) and emits from the bounding
+sphere. The emission side (sample_emission, eval_emission,
+pdf_emission_*) starts and weighs light walks. Rows are plain gathers by
+light id.
 """
 
 from __future__ import annotations
@@ -64,7 +67,7 @@ class LightsBuild:
 
 def bake_lights(build: LightsBuild, em_tri_light, em_tri_area, world_center,
                 world_radius: float, device, sph_center=None, sph_radius=None,
-                is_sphere=None) -> dict:
+                is_sphere=None, env_luminance_power: float = 0.0) -> dict:
     """-> the light table, a dict of tensors on device. Light powers feed
     the pick CDF (reference Scene ctor, luminance of power()); the world's
     bounding sphere places directional emission.
@@ -72,15 +75,12 @@ def bake_lights(build: LightsBuild, em_tri_light, em_tri_area, world_center,
     em_tri_light (E,): light id of each emissive triangle, in light order,
     so each light's triangles are one segment; em_tri_area (E,): their
     world areas. sph_center (L, 3), sph_radius (L,), is_sphere (L,): the
-    analytic sphere emitter of each light that has one. The entry
-    "static" holds what the sampling code branches on without reading the
-    device: the non-empty segments and whether any sphere emits.
+    analytic sphere emitter of each light that has one;
+    env_luminance_power: an image-based light's power. The entry "static"
+    holds what the sampling code branches on without reading the device:
+    the non-empty segments and whether any sphere, area or image-based
+    light emits.
     """
-    for t in build.types:
-        if t not in DELTA_LIGHTS and t != LIGHT_AREA:
-            raise NotImplementedError(
-                f"light type {t} is not in goblin_tpu_torch yet (ROADMAP "
-                "Queue 1 item 12)")
     L = max(1, len(build.types))
     types = np.asarray(build.types or [LIGHT_POINT], np.int32)
     colors = np.asarray(build.colors or [np.zeros(3)], np.float32).reshape(L, 3)
@@ -98,6 +98,8 @@ def bake_lights(build: LightsBuild, em_tri_light, em_tri_area, world_center,
             power[i] = lum[i] * 2.0 * np.pi * (1.0 - 0.5 * (ctm + cfs))
         elif t == LIGHT_AREA:
             power[i] = lum[i] * np.pi * areas[i]
+        elif t == LIGHT_IBL:
+            power[i] = env_luminance_power
     if power.sum() <= 0.0:
         power[:] = 1.0
 
@@ -146,6 +148,7 @@ def bake_lights(build: LightsBuild, em_tri_light, em_tri_area, world_center,
                           for i in range(L) if seg_start[i + 1] > seg_start[i]),
         "has_sphere": bool(np.any(is_sphere)),
         "has_area": bool(np.any(types == LIGHT_AREA)),
+        "has_ibl": bool(np.any(types == LIGHT_IBL)),
     }
     return lights
 
@@ -240,6 +243,8 @@ def sample_li(lights, tri_data, lid, p, eps, u1, u2):
     pdf = torch.ones_like(dist)
     shadow_maxt = torch.where(is_dir, 3.0e37, dist - eps)
     dist_out = dist
+    # an image-based light's lanes keep Li = 0: the integrators sample the
+    # map through envmap.sample_env
 
     # area: a triangle of the light's segment by its area cdf, a uniform
     # point on it (an area light without triangles or sphere keeps Li = 0)
@@ -355,7 +360,12 @@ def sample_emission(lights, tri_data, lid, u_p1, u_p2, u_d1, u_d2):
     uniform cone; directional -> a point on the disk of the world's
     bounding sphere, fixed direction; area -> an area-uniform point of the
     light's triangles (or of its sphere) and a cosine-weighted direction
-    about the normal there.
+    about the normal there; image-based -> a uniform point on the world's
+    bounding sphere, the inward normal and a cosine-weighted direction
+    about it (ImageBasedLight::samplePosition / sampleDirection,
+    src/GoblinLight.cpp:557-583). The image-based light's position pdf is
+    goblin_tpu's true area density 1 / (4 pi r^2), where the reference
+    omits the r^2.
 
     tri_data: {"em_rows": (E, 12)} emissive triangles in segment order.
     Returns dict: p (R, 3), n (R, 3) (zeros for delta positions), dir
@@ -423,6 +433,22 @@ def sample_emission(lights, tri_data, lid, u_p1, u_p2, u_d1, u_d2):
         pdf_dir = torch.where(
             is_area,
             torch.clamp(cos_local[..., 2], min=0.0) * (1.0 / np.pi), pdf_dir)
+    if static["has_ibl"]:
+        is_ibl = ltype == LIGHT_IBL
+        sph_dir = sp.uniform_sample_sphere(u_p1, u_p2)
+        n_ibl = -sph_dir
+        cos_local = sp.cosine_sample_hemisphere(u_d1, u_d2)
+        ax, ay = vm.coordinate_system(n_ibl)
+        d_cos = (cos_local[..., 0:1] * ax + cos_local[..., 1:2] * ay
+                 + cos_local[..., 2:3] * n_ibl)
+        e = is_ibl[..., None]
+        p = torch.where(e, wc + wr * sph_dir, p)
+        n = torch.where(e, n_ibl, n)
+        d = torch.where(e, d_cos, d)
+        pdf_pos = torch.where(is_ibl, 1.0 / (4.0 * np.pi * wr * wr), pdf_pos)
+        pdf_dir = torch.where(
+            is_ibl,
+            torch.clamp(cos_local[..., 2], min=0.0) * (1.0 / np.pi), pdf_dir)
     return {
         "p": p, "n": n, "dir": d,
         "pdf_pos": pdf_pos, "pdf_dir": pdf_dir,
@@ -433,49 +459,53 @@ def sample_emission(lights, tri_data, lid, u_p1, u_p2, u_d1, u_d2):
 def eval_emission(lights, lid, n_light, wo, env_le=None):
     """Emitted intensity / radiance toward wo (reference Light::eval):
     point -> I; spot -> I times the cone falloff; directional -> L only
-    along its own direction; area -> Le on the side of n_light. env_le, the
-    environment's radiance, belongs to image-based lights, which are
-    refused (ROADMAP Queue 1 item 12)."""
-    if env_le is not None:
-        raise NotImplementedError("image-based light emission is not in "
-                                  "goblin_tpu_torch yet (ROADMAP Queue 1 "
-                                  "item 12)")
+    along its own direction; area -> Le on the side of n_light;
+    image-based -> env_le, the map's radiance, which the caller looks up
+    at -wo (ImageBasedLight::eval, src/GoblinLight.cpp:600-608); 0 when
+    env_le is not given."""
     ltype = lights["type"][lid]
     lcolor = lights["color"][lid]
     spot = spot_falloff(lights, lid, wo)[..., None] * lcolor
     parallel = (vm.dot(wo, lights["direction"][lid]) - 1.0).abs() < 1e-5
     dir_e = torch.where(parallel[..., None], lcolor, 0.0)
     area_e = torch.where((vm.dot(n_light, wo) > 0.0)[..., None], lcolor, 0.0)
+    other = 0.0
+    if env_le is not None:
+        other = torch.where((ltype == LIGHT_IBL)[..., None], env_le, 0.0)
     return torch.where(
         (ltype == LIGHT_POINT)[..., None], lcolor,
         torch.where((ltype == LIGHT_SPOT)[..., None], spot,
                     torch.where((ltype == LIGHT_DIRECTIONAL)[..., None], dir_e,
                                 torch.where((ltype == LIGHT_AREA)[..., None],
-                                            area_e, 0.0))))
+                                            area_e, other))))
 
 
 def pdf_emission_direction(lights, lid, n_light, w):
     """Light::pdfDirection, the solid-angle pdf of emitting direction w:
     point -> 1 / 4 pi; spot -> the cone pdf (the falloff is ignored, as in
-    the reference); directional -> 0; area -> cos / pi, one-sided."""
+    the reference); directional -> 0; area and image-based -> cos / pi,
+    one-sided (ImageBasedLight::pdfDirection, src/GoblinLight.cpp:592-597)."""
     ltype = lights["type"][lid]
     cone = sp.uniform_cone_pdf(lights["cos_theta_max"][lid])
     area_cos = vm.dot(n_light, w)
     return torch.where(
         ltype == LIGHT_POINT, sp.uniform_sphere_pdf(),
         torch.where(ltype == LIGHT_SPOT, cone,
-                    torch.where(ltype == LIGHT_AREA,
+                    torch.where((ltype == LIGHT_AREA) | (ltype == LIGHT_IBL),
                                 torch.clamp(area_cos, min=0.0) * (1.0 / np.pi),
                                 0.0)))
 
 
 def pdf_emission_position(lights, lid):
     """Light::pdfPosition, the area pdf of the emission position:
-    directional -> 1 / (pi r^2) on the world's disk; area -> 1 / A; a
-    delta position -> 0."""
+    directional -> 1 / (pi r^2) on the world's disk; area -> 1 / A;
+    image-based -> 1 / (4 pi r^2) on the world's sphere (see
+    sample_emission); a delta position -> 0."""
     ltype = lights["type"][lid]
     wr = lights["world_radius"]
     return torch.where(
         ltype == LIGHT_DIRECTIONAL, 1.0 / (np.pi * wr * wr),
         torch.where(ltype == LIGHT_AREA,
-                    1.0 / torch.clamp(lights["area"][lid], min=1e-20), 0.0))
+                    1.0 / torch.clamp(lights["area"][lid], min=1e-20),
+                    torch.where(ltype == LIGHT_IBL,
+                                1.0 / (4.0 * np.pi * wr * wr), 0.0)))

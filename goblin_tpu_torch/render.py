@@ -1,5 +1,6 @@
 """Scene file -> image, and the command line (port of goblin_tpu/render.py
-for the path_tracing, ao, whitted, light_tracing and sppm methods).
+for its six methods: path_tracing, ao, whitted, light_tracing, bdpt and
+sppm).
 
     python -m goblin_tpu_torch scene.json [render_method] [--device cuda|cpu]
 
@@ -23,7 +24,8 @@ SPLAT_METHODS = ("light_tracing", "bdpt", "sppm")
 
 
 def make_li(meta):
-    """The integrator's batched Li for meta.settings["render_method"]."""
+    """The integrator's batched Li for meta.settings["render_method"]; the
+    splatting methods (light_tracing, bdpt, sppm) have none."""
     method = meta.settings.get("render_method", "path_tracing")
     if method == "ao":
         from .integrators.ao import make_li as mk
@@ -37,10 +39,6 @@ def make_li(meta):
         from .integrators.path import make_li as mk
 
         return mk(meta)
-    if method == "bdpt":
-        raise NotImplementedError(
-            "render_method 'bdpt' is not in goblin_tpu_torch yet (ROADMAP "
-            "Queue 1 item 10)")
     raise ValueError(f"render_method {method!r} has no batched Li")
 
 

@@ -23,6 +23,7 @@ import torch
 from ..accel.bvh import align_leaves, build_bvh
 from ..camera.camera import CameraSpec
 from ..integrators import materials as mats
+from ..lights.envmap import bake_env, env_luminance
 from ..lights.lights import DELTA_LIGHTS, LIGHT_AREA, LightsBuild, bake_lights
 from ..ops.trace import (BIN_STACK, bin_depth, bin_stack_bound, bin_tables,
                          check_wide_depth, collapse_wide, tri_rows)
@@ -81,15 +82,19 @@ class SceneMeta:
     max_leaf: int = MAX_LEAF
     has_perturb: bool = False  # a material carries a bump or normal map
     has_null: bool = False  # a mask material (null lobe) is in the scene
-    # image-based light / subsurface material in the scene: the loader
-    # refuses both, so these stay False until their integrators are ported
+    # an image-based light and its row of the light table (scene["env"]
+    # holds its map)
     has_env: bool = False
+    env_light_id: int = -1
+    # a subsurface material: the loader refuses it, so this stays False
+    # until its integrator is ported
     has_bssrdf: bool = False
     # NEE samples of each light (reference Light::getSamplesNum), which
     # Whitted's direct lighting takes
     light_sample_nums: tuple = ()
-    # every light is a delta light: a BSDF ray never hits an emitter, so
-    # the path tracer skips the last bounce's continuation trace
+    # every light is a delta light and there is no environment: a BSDF ray
+    # never hits an emitter, so the path tracer skips the last bounce's
+    # continuation trace
     all_delta_lights: bool = False
     # material kinds present (the BSDF prunes the branches of absent ones)
     material_kinds: tuple = ()
@@ -150,6 +155,11 @@ class SceneBuilder:
         self.lights = LightsBuild()
         self.camera: CameraSpec | None = None
         self.settings: dict = {}
+        # the image-based light: its row, map, filter and orientation
+        self.env_light_id = -1
+        self.env_image = None
+        self.env_filter = np.ones(3, np.float32)
+        self.env_orientation = np.array([1.0, 0.0, 0.0, 0.0], np.float32)
 
     def add_color_texture(self, spec: TexSpec) -> int:
         self.color_textures.append(spec)
@@ -316,6 +326,14 @@ class SceneBuilder:
                 sph_l_radius[lgt] = radius
                 light_is_sphere[lgt] = True
         self.lights.areas = list(areas[: len(self.lights.types)])
+        has_env = self.env_light_id >= 0
+        env_power = 0.0
+        if has_env:
+            # reference ImageBasedLight::power: the unfiltered map's mean
+            # luminance x pi x 4 pi r^2 on the world's bounding sphere
+            # (src/GoblinLight.cpp:610-618)
+            env_power = float(env_luminance(self.env_image).mean() * np.pi
+                              * 4.0 * np.pi * world_radius ** 2)
 
         mat_rows = np.zeros((len(self.materials), 8), np.float32)
         for i, m in enumerate(self.materials):
@@ -353,11 +371,15 @@ class SceneBuilder:
             "ftex_const": dev(ftex_sys.const),
             "lights": bake_lights(self.lights, LIGHT[em_sel], em_area,
                                   world_center, world_radius, device,
-                                  sph_l_center, sph_l_radius, light_is_sphere),
+                                  sph_l_center, sph_l_radius, light_is_sphere,
+                                  env_luminance_power=env_power),
             # emissive-triangle rows [v0, e1, e2, n], one gather a sample
             "em_rows": dev(np.concatenate([em_v[:, 0], e1, e2, em_n], axis=-1)
                            .astype(np.float32)),
         })
+        if has_env:
+            scene["env"] = bake_env(self.env_image, self.env_filter,
+                                    self.env_orientation, device)
         if spheres:
             scene["sph_center"] = dev(np.stack([s[0] for s in spheres])
                                       .astype(np.float32))
@@ -398,8 +420,11 @@ class SceneBuilder:
             has_perturb=any(m.bump_tex >= 0 or m.normal_tex >= 0
                             for m in self.materials),
             has_null=any(m.kind == MAT_MASK for m in self.materials),
+            has_env=has_env,
+            env_light_id=self.env_light_id,
             light_sample_nums=tuple(int(n) for n in self.lights.sample_nums),
-            all_delta_lights=all(t in DELTA_LIGHTS for t in self.lights.types),
+            all_delta_lights=(not has_env and all(
+                t in DELTA_LIGHTS for t in self.lights.types)),
             material_kinds=tuple(sorted({m.kind for m in self.materials})),
             world_bounds=(tuple(float(v) for v in bmin),
                           tuple(float(v) for v in bmax)),

@@ -4,13 +4,13 @@ the reference schema that the ported integrators render).
 Supported: meshes (OBJ), analytic spheres and disks placed by instances,
 constant / checkerboard / scale / image textures of color and float format
 with uv or spherical mapping, bump and normal maps, lambert / blinn /
-transparent / mirror / mask materials, point / spot / directional / area
-lights, perspective (pinhole or thin-lens) and orthographic cameras, box /
-triangle / gaussian / mitchell film filters and EXR output. Any other
-feature raises NotImplementedError naming the ROADMAP item that brings it,
-and a texture file that does not load or an unknown texture type, mapping
-or channel raises ValueError, where goblin_tpu prints and goes on; nothing
-is silently skipped. Unknown texture and material names resolve to the
+transparent / mirror / mask materials, point / spot / directional / area /
+image-based lights, perspective (pinhole or thin-lens) and orthographic
+cameras, box / triangle / gaussian / mitchell film filters and EXR output.
+Any other feature raises NotImplementedError naming the ROADMAP item that
+brings it, and a texture or environment file that does not load or an
+unknown texture type, mapping or channel raises ValueError, where
+goblin_tpu prints and goes on; nothing is silently skipped. Unknown texture and material names resolve to the
 magenta error assets, as in the reference (src/GoblinScene.cpp:112-128).
 
 Material and texture ids are table rows, so materials are added in
@@ -34,8 +34,8 @@ from ..camera.camera import CameraSpec
 from ..camera.film import FilmSpec, FilterSpec
 from ..geometry.mesh import load_obj
 from ..io.exr import read_exr
-from ..lights.lights import (LIGHT_AREA, LIGHT_DIRECTIONAL, LIGHT_POINT,
-                             LIGHT_SPOT)
+from ..lights.lights import (LIGHT_AREA, LIGHT_DIRECTIONAL, LIGHT_IBL,
+                             LIGHT_POINT, LIGHT_SPOT)
 from ..shading.bsdf import (MAT_BLINN, MAT_LAMBERT, MAT_MASK, MAT_MIRROR,
                             MAT_TRANSPARENT)
 from ..shading.textures import (ADDRESS_BORDER, ADDRESS_CLAMP, ADDRESS_REPEAT,
@@ -70,16 +70,22 @@ _ADDRESSES = {"repeat": ADDRESS_REPEAT, "clamp": ADDRESS_CLAMP,
               "border": ADDRESS_BORDER}
 
 
+def _read_image(path, what):
+    """An EXR file as (H, W, 3) float32; a file that does not load raises
+    ValueError naming what it was for."""
+    try:
+        return read_exr(path)
+    except (OSError, ValueError, IndexError, struct.error, zlib.error) as e:
+        raise ValueError(f"{what} {path!r} failed to load: {e}") from e
+
+
 def _load_texture_image(path, channel, fmt):
     """An image file as (H, W, 3) texels with the channel selection done
     (reference convertTexel, src/GoblinTexture.cpp:486-518): R / G / B
     replicate that channel, A reads 1 where the file has no alpha, and
     "All" keeps RGB for a color texture and takes the Rec.709 luminance
     for a float one."""
-    try:
-        img = read_exr(path)
-    except (OSError, ValueError, IndexError, struct.error, zlib.error) as e:
-        raise ValueError(f"texture image {path!r} failed to load: {e}") from e
+    img = _read_image(path, "texture image")
     if channel in ("R", "G", "B"):
         c = "RGB".index(channel)
         return np.repeat(img[:, :, c:c + 1], 3, axis=2)
@@ -190,6 +196,10 @@ def load_scene(path: str, overrides: dict | None = None, device="cuda",
         "max_ray_depth": rs.get_int("max_ray_depth", 5),
         "ao_sample_num": rs.get_int("ao_sample_num", 25),
         "initial_radius": rs.get_float("initial_radius", -1.0),
+        # BDPT's strategy isolation (reference GoblinBDPT.cpp:59-63)
+        "debug_s": rs.get_int("debug_s", -1),
+        "debug_t": rs.get_int("debug_t", -1),
+        "debug_no_mis": rs.get_bool("debug_no_mis", False),
         # the light tracer's estimator: t1 | t0 | s1 (the reference's
         # compile-time splatFilm alternates, src/GoblinLightTracer.h:30-46)
         "lt_strategy": rs.get_string("lt_strategy", "t1"),
@@ -360,7 +370,16 @@ def load_scene(path: str, overrides: dict | None = None, device="cuda",
             area_light_geo.append((lid, p.get_string("geometry"),
                                    get_transform(p)))
         elif lkind == "ibl":
-            raise _unsupported("image-based light", "12")
+            # the map, its filter and its orientation (goblin_tpu/scene/
+            # loader.py:485-500)
+            img = _read_image(_resolve_path(scene_dir, p.get_string("file")),
+                              "environment map")
+            filt = p.get_vec3("filter", (1.0, 1.0, 1.0))
+            builder.env_light_id = builder.lights.add(
+                LIGHT_IBL, filt, sample_num=p.get_int("sample_num", 1))
+            builder.env_image = img
+            builder.env_filter = filt
+            builder.env_orientation = get_quaternion(p)
         else:
             raise ValueError(f"unknown light type {lkind!r}")
 

@@ -10,7 +10,8 @@ resolved without its weights and scaled by pixels / paths
 (src/GoblinLightTracer.cpp:360-365). The reference's two cross-checking
 estimators are here too: t0 (a path deposits only where it hits the lens
 disk) and s1 (a camera walk, each vertex connected to one light sample).
-BDPT comes with ROADMAP Queue 1 item 10.
+BDPT (integrators/bdpt.py) and SPPM (integrators/sppm.py) are dispatched
+from here.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from .core.rng import hash_uniform
 from .integrators.common import DIM_BASE
 from .integrators.materials import gather_material
 from .integrators.path import _em_tri_data
+from .lights import envmap
 from .lights import lights as lt
 from .scene import intersect as scn
 from .shading import bsdf as bx
@@ -41,9 +43,12 @@ _BIG_T = 3.0e38
 
 
 def _env_le_at(scene, meta, wo):
-    """Environment radiance for emission eval (goblin_tpu looks the map up
-    at -wo): None, since the loader refuses image-based lights."""
-    return None
+    """The environment's radiance for emission toward wo: the map looked up
+    at -wo (ImageBasedLight::eval, src/GoblinLight.cpp:600-608); None
+    without an image-based light."""
+    if not meta.has_env:
+        return None
+    return envmap.eval_env(scene, meta, -wo)
 
 
 def walk_light_paths(scene, meta, path_ids, s_idx, seed, max_path_length,
@@ -347,7 +352,7 @@ def render_light_tracer(scene, meta, chunk_size=1 << 14, spp=None, seed=None,
 
 def render_dispatch(scene, meta, method, report=None):
     """Render a splatting method -> image (H, W, 3); report(done, total)
-    after each iteration (SPPM) or chunk of paths (light tracing)."""
+    after each iteration (SPPM) or chunk of paths (light tracing, BDPT)."""
     if method == "sppm":
         from .integrators.sppm import render_sppm
 
@@ -355,7 +360,7 @@ def render_dispatch(scene, meta, method, report=None):
     if method == "light_tracing":
         return render_light_tracer(scene, meta, report=report)
     if method == "bdpt":
-        raise NotImplementedError(
-            "render_method 'bdpt' is not in goblin_tpu_torch yet (ROADMAP "
-            "Queue 1 item 10)")
+        from .integrators.bdpt import render_bdpt
+
+        return render_bdpt(scene, meta, report=report)
     raise ValueError(f"render_method {method!r} is not a splatting method")

@@ -1,7 +1,8 @@
 """examples/bunny_gallery.json (the studio scene under the texture chain)
 rendered at 32 x 24 by goblin_tpu_torch and by goblin_tpu on the CPU under
 ao, whitted, light_tracing and sppm (path_tracing, the baked tables and
-the fragments: tests/test_torch_textures.py).
+the fragments: tests/test_torch_textures.py), and by the port alone
+through render_context under all six methods.
 
 Same sample streams and the same tree in both packages; the bar is
 PERF.md's: >= 99% of pixels within 1e-4 + 1e-3 rel, means within 1e-3 rel.
@@ -73,10 +74,11 @@ def test_gallery_sppm_matches_goblin_tpu():
 
 
 @pytest.mark.parametrize("method", ["ao", "whitted", "light_tracing", "sppm",
-                                    "path_tracing"])
+                                    "path_tracing", "bdpt"])
 def test_gallery_renders_through_render_context(method):
     """The user's entry point on the CPU at the scene's own size would take
-    minutes; a 16 x 12 film through the same dispatch."""
+    minutes; a 16 x 12 film through the same dispatch (bdpt: the walks'
+    materials and the connections' re-gathers through the texture chain)."""
     import dataclasses
 
     from goblin_tpu_torch import render as trender

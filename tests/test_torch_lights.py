@@ -1,6 +1,6 @@
 """goblin_tpu_torch's light table against goblin_tpu's on the CPU, lane by
 lane: point, directional, spot, two triangle-backed area lights and a
-sphere light in one table.
+sphere light in one table, and an image-based light's arms.
 
 Inputs are made with numpy from a seed and handed to both packages.
 Bit-equal: the baked tables, the light pick, the emissive-triangle pick and
@@ -264,12 +264,69 @@ def test_emission_matches(kind):
 
 
 def test_ibl_arms_stay_refused():
-    jlt, tlt, _, ttri = _tables()
-    lid = torch.zeros(4, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.eval_emission(tlt, lid, torch.zeros(4, 3), torch.ones(4, 3),
-                         env_le=torch.ones(4, 3))
-    b = tl.LightsBuild()
-    b.add(tl.LIGHT_IBL, (1.0, 1.0, 1.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.bake_lights(b, [], [], np.zeros(3, np.float32), 1.0, "cpu")
+    """Named for the refusal it replaced: image-based lights load now. The
+    six lights plus an image-based one (power 42.5) in one table: the
+    tables equal, sample_li's Li 0 on its lanes, and its arms of
+    sample_emission, eval_emission (the map's radiance handed in) and
+    pdf_emission_* lane by lane against goblin_tpu, the other kinds' lanes
+    unchanged by env_le."""
+    rng = np.random.default_rng(40)
+    jb_, tb_ = jl.LightsBuild(), tl.LightsBuild()
+    for b in (jb_, tb_):
+        b.add(0, (3.0, 2.0, 1.0), position=(0.5, 2.0, -1.0))
+        b.add(1, (0.5, 0.6, 0.7), direction=(0.3, -1.0, 0.2))
+        b.add(tl.LIGHT_IBL, (1.0, 0.9, 0.8))
+    wc = np.float32([0.2, -0.4, 0.1])
+    jlt = jl.bake_lights(jb_, [], [], wc, 7.5, env_luminance_power=42.5)
+    tlt = tl.bake_lights(tb_, [], [], wc, 7.5, "cpu",
+                         env_luminance_power=42.5)
+    for k in jlt:
+        np.testing.assert_array_equal(_np(tlt[k]), np.asarray(jlt[k]),
+                                      err_msg=k)
+    assert float(tlt["power"][2]) == 42.5 and tlt["static"]["has_ibl"]
+    n = 4096
+    lid = rng.integers(0, 3, n).astype(np.int32)
+    u = [rng.uniform(0, 1, n).astype(np.float32) for _ in range(4)]
+    no_tri = ({"em_rows": jnp.zeros((1, 12))}, {"em_rows": torch.zeros((1, 12))})
+    ref = jl.sample_emission(jlt, no_tri[0], jnp.asarray(lid),
+                             *(jnp.asarray(x) for x in u))
+    got = tl.sample_emission(tlt, no_tri[1], _t(lid).long(),
+                             *(_t(x) for x in u))
+    for k in ("p", "n", "dir", "pdf_pos", "pdf_dir"):
+        np.testing.assert_allclose(_np(got[k]), np.asarray(ref[k]), **TOL,
+                                   err_msg=k)
+    np.testing.assert_array_equal(_np(got["is_delta"]), lid < 2)
+    env_le = rng.uniform(0, 3, (n, 3)).astype(np.float32)
+    for w in (np.asarray(ref["dir"]), _unit_rows(rng, n)):
+        got_e = tl.eval_emission(tlt, _t(lid).long(), got["n"], _t(w),
+                                 env_le=_t(env_le))
+        np.testing.assert_allclose(
+            _np(got_e), np.asarray(jl.eval_emission(
+                jlt, jnp.asarray(lid), ref["n"], jnp.asarray(w),
+                env_le=jnp.asarray(env_le))), **TOL)
+        np.testing.assert_array_equal(_np(got_e)[lid == 2], env_le[lid == 2])
+        np.testing.assert_array_equal(
+            _np(got_e)[lid < 2],
+            _np(tl.eval_emission(tlt, _t(lid).long(), got["n"], _t(w)))[lid < 2])
+        np.testing.assert_allclose(
+            _np(tl.pdf_emission_direction(tlt, _t(lid).long(), got["n"],
+                                          _t(w))),
+            np.asarray(jl.pdf_emission_direction(jlt, jnp.asarray(lid),
+                                                 ref["n"], jnp.asarray(w))),
+            **TOL)
+    np.testing.assert_allclose(
+        _np(tl.pdf_emission_position(tlt, _t(lid).long())),
+        np.asarray(jl.pdf_emission_position(jlt, jnp.asarray(lid))), **TOL)
+    p = _points(rng, n)
+    ls = tl.sample_li(tlt, no_tri[1], _t(lid).long(), _t(p),
+                      torch.full((n,), 1e-3), _t(u[0]), _t(u[1]))
+    jls = jl.sample_li(jlt, no_tri[0], jnp.asarray(lid), jnp.asarray(p),
+                       jnp.full((n,), 1e-3), jnp.asarray(u[0]),
+                       jnp.asarray(u[1]))
+    assert not ls["Li"][_t(lid == 2)].any()
+    np.testing.assert_allclose(_np(ls["Li"]), np.asarray(jls["Li"]), **TOL)
+
+
+def _unit_rows(rng, n):
+    w = rng.normal(size=(n, 3))
+    return (w / np.linalg.norm(w, axis=-1, keepdims=True)).astype(np.float32)

@@ -205,6 +205,33 @@ def test_normalized_splat_matches(kind):
         np.asarray(jfilm.to_image(jc, jw)), rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("kind", sorted(FILTER_KINDS))
+def test_zero_taps_add_nothing_wherever_they_land(kind):
+    """splat_taps spreads its zero-weight taps over the film; the film is
+    bit for bit the one made with every zero tap added into pixel 0 (where
+    clamping the index puts the taps of a sample sent off the film) or
+    into the last pixel."""
+    kw = dict(kind=kind, x_width=2.0, y_width=1.5, **FILTER_KINDS[kind])
+    spec = tfilm.FilmSpec(x_res=20, y_res=14, filter=tfilm.FilterSpec(**kw))
+    rng = np.random.default_rng(4)
+    n = 600
+    x = rng.uniform(-3, 23, n).astype(np.float32)
+    y = rng.uniform(-3, 17, n).astype(np.float32)
+    x[:200] = -1e9
+    L = rng.uniform(0, 2, (n, 3)).astype(np.float32)
+    L[200:204] = np.nan
+    for normalized in (False, True):
+        got = tfilm.splat(spec, *tfilm.new_film(spec, "cpu"), _t(x), _t(y),
+                          _t(L), normalized=normalized)
+        idx, w, wL = tfilm.splat_taps(spec, _t(x), _t(y), _t(L), normalized)
+        zero = w == 0.0
+        assert zero.any() and (~zero).any() and not wL[zero].any()
+        for target in (0, spec.x_res * spec.y_res - 1):
+            ref = tfilm.splat_accum(*tfilm.new_film(spec, "cpu"),
+                                    torch.where(zero, target, idx), w, wL)
+            assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
 # --- the BSDF in importance mode --------------------------------------------
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -457,8 +484,8 @@ def test_render_context_dispatches_light_tracing(tmp_path):
 
 
 def test_cli_renders_light_tracing_on_cpu(tmp_path):
+    """light_tracing and bdpt, which the CLI refused until it was ported."""
     path = _dof_scene(tmp_path)
-    assert trender.main([path, "light_tracing", "--device", "cpu"]) == 0
-    assert os.path.getsize(tmp_path / "scene.exr") > 0
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trender.main([path, "bdpt", "--device", "cpu"])
+    for method in ("light_tracing", "bdpt"):
+        assert trender.main([path, method, "--device", "cpu"]) == 0
+        assert os.path.getsize(tmp_path / "scene.exr") > 0

@@ -26,6 +26,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUNNY = os.path.join(REPO, "examples", "bunny.json")
 STUDIO = os.path.join(REPO, "examples", "bunny_studio.json")
 GALLERY = os.path.join(REPO, "examples", "bunny_gallery.json")
+SKY = os.path.join(REPO, "examples", "bunny_sky.json")
 
 
 def _bunny_copy(tmp_path, x_res, y_res, spp, depth, **edits):
@@ -95,9 +96,9 @@ def _two_triangle_scene(tmp_path):
 def test_port_imports_neither_jax_nor_goblin_tpu(tmp_path):
     """A fresh interpreter loads and renders a two-triangle scene on the CPU
     with goblin_tpu_torch, by path tracing and by SPPM at the trace widths,
-    then the studio scene (every feature of its slice) at width 4 and the
-    gallery scene (the texture chain) under whitted, and never imports jax
-    or goblin_tpu."""
+    then the studio scene (every feature of its slice) at width 4, the
+    gallery scene (the texture chain) under whitted and the sky scene (the
+    map) under bdpt, and never imports jax or goblin_tpu."""
     scene = _two_triangle_scene(tmp_path)
     script = textwrap.dedent(f"""
         import dataclasses, sys
@@ -127,6 +128,16 @@ def test_port_imports_neither_jax_nor_goblin_tpu(tmp_path):
         assert tuple(img.shape) == (12, 16, 3), img.shape
         assert bool(img.isfinite().all()) and float(img.mean()) > 0
         assert meta.has_perturb and scene["tex_atlas"].numel() > 100000
+        scene, meta = load_scene({SKY!r}, {{"render_method": "bdpt",
+                                 "sample_per_pixel": 1, "max_ray_depth": 3}},
+                                 device="cpu")
+        film = dataclasses.replace(meta.camera.film, x_res=16, y_res=12)
+        meta.camera = dataclasses.replace(meta.camera, film=film)
+        from goblin_tpu_torch.splatting import render_dispatch
+        img = render_dispatch(scene, meta, "bdpt")
+        assert tuple(img.shape) == (12, 16, 3), img.shape
+        assert bool(img.isfinite().all()) and float(img.mean()) > 0
+        assert meta.has_env and "env" in scene
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "goblin_tpu" or m.startswith("goblin_tpu.")]
         assert not bad, bad
@@ -166,24 +177,29 @@ def _film(**film):
 
 # features outside the slices so far, each with the ROADMAP item that brings
 # it (textures and bump maps, refused until the texture slice, load now:
-# tests/test_torch_textures.py)
+# tests/test_torch_textures.py). The "bdpt" and "image-based light" cases,
+# refused until this slice, now load and carry a feature that is still
+# refused: a bdpt scene with a volume, an image-lit scene with a
+# subsurface material (both load: test_bdpt_and_image_based_lights_render).
+SUBSURFACE = {"name": "k", "type": "subsurface"}
+IBL = {"type": "ibl", "file": "x.exr"}
 UNSUPPORTED = {
     "tone mapping": _film(tone_mapping=True),
     "bloom": _film(bloom_radius=0.1, bloom_weight=0.5),
     "non-EXR output": _film(file="out.ppm"),
-    "bdpt": dict(TWO_TRIANGLES, render_setting={"render_method": "bdpt"}),
-    "subsurface material": _with(TWO_TRIANGLES, "materials",
-                                 {"name": "k", "type": "subsurface"}),
+    "bdpt": dict(TWO_TRIANGLES, render_setting={"render_method": "bdpt"},
+                 volume={"type": "homogeneous"}),
+    "subsurface material": _with(TWO_TRIANGLES, "materials", SUBSURFACE),
     "volume": dict(TWO_TRIANGLES, volume={"type": "homogeneous"}),
-    "image-based light": _with(TWO_TRIANGLES, "lights",
-                               {"type": "ibl", "file": "x.exr"}),
+    "image-based light": _with(_with(TWO_TRIANGLES, "lights", IBL),
+                               "materials", SUBSURFACE),
 }
 
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
 def test_loader_refuses_features_outside_the_slice(tmp_path, name):
-    """The loader refuses what no slice has ported (bdpt loads: its render
-    is refused), naming the ROADMAP item, and skips nothing silently."""
+    """The loader refuses what no slice has ported, naming the ROADMAP
+    item, and skips nothing silently."""
     _two_triangle_scene(tmp_path)
     path = tmp_path / "x.json"
     path.write_text(json.dumps(UNSUPPORTED[name]))
@@ -202,7 +218,32 @@ def test_bake_refuses_trees_deeper_than_the_kernel_stack(tmp_path,
 
 
 def test_other_integrators_refused(tmp_path):
-    _, meta = tloader.load_scene(_two_triangle_scene(tmp_path),
-                                 {"render_method": "bdpt"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trender.make_li(meta)
+    """make_li has no batched Li for a splatting method (goblin_tpu's
+    ValueError); bdpt, refused until it was ported, reaches it too."""
+    path = _two_triangle_scene(tmp_path)
+    for method in ("bdpt", "light_tracing", "sppm", "unknown"):
+        _, meta = tloader.load_scene(path, {"render_method": method},
+                                     device="cpu")
+        with pytest.raises(ValueError, match="no batched Li"):
+            trender.make_li(meta)
+
+
+def test_bdpt_and_image_based_lights_render(tmp_path):
+    """The two features this slice brought, through render_context: bdpt
+    on the two-triangle scene, and the scene lit by a map as well under
+    every method."""
+    from goblin_tpu_torch.io.exr import write_exr
+
+    _two_triangle_scene(tmp_path)
+    write_exr(str(tmp_path / "x.exr"), np.full((4, 8, 3), 0.5, np.float32))
+    every = ("path_tracing", "ao", "whitted", "light_tracing", "bdpt", "sppm")
+    for doc, methods in ((TWO_TRIANGLES, ("bdpt",)),
+                         (_with(TWO_TRIANGLES, "lights", IBL), every)):
+        path = tmp_path / "x.json"
+        path.write_text(json.dumps(doc))
+        for method in methods:
+            img, meta = trender.render_context(
+                str(path), {"render_method": method}, device="cpu")
+            assert tuple(img.shape) == (4, 4, 3), method
+            assert bool(img.isfinite().all()) and float(img.mean()) > 0, method
+    assert meta.has_env and meta.n_lights == 2

@@ -206,8 +206,10 @@ def test_emission_matches_for_point_spot_directional():
     again = tl.sample_emission(tlt, {"em_rows": torch.zeros((1, 12))},
                                _t(lid), *(_t(x) for x in u))
     np.testing.assert_array_equal(_np(again["p"]), _np(got["p"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.eval_emission(tlt, _t(lid), got["n"], _t(wo), env_le=_t(wo))
+    # an environment's radiance changes no lane of a table without one
+    assert torch.equal(tl.eval_emission(tlt, _t(lid), got["n"], _t(wo),
+                                        env_le=_t(wo)),
+                       tl.eval_emission(tlt, _t(lid), got["n"], _t(wo)))
 
 
 def _mats(rng, n):
@@ -400,6 +402,70 @@ def test_vp_drain_matches(tmp_path, monkeypatch):
                                atol=0)
 
 
+def _drain_per_turn(scene, meta, max_len, n_pix, vp, radius, rows, entry_hash,
+                    entry_idx, bbox_min, inv_len, Phi, Mi):
+    """The drain as it was before it read the fullest cell's count: the
+    host tests the loop condition on the device once a turn."""
+    from goblin_tpu_torch.core import vecmath as vm
+    from goblin_tpu_torch.integrators.materials import gather_material
+
+    p = vp["p"]
+    E = entry_hash.shape[0]
+    c = torch.floor((p - bbox_min) * inv_len).to(torch.int32)
+    h = tsppm._hash_cells(c[:, 0], c[:, 1], c[:, 2], n_pix)
+    start = torch.searchsorted(entry_hash, h)
+    end = torch.where(vp["valid"], torch.searchsorted(entry_hash, h, right=True),
+                      start)
+    mat_v = gather_material(scene, meta, {"mat": vp["mat"], "uv": vp["uv"]})
+    r2 = radius * radius
+    budget = float(max_len) - vp["len"].to(torch.float32)
+    k = 0
+    while k < E and bool((start + k < end).any()):
+        row = rows[entry_idx[torch.clamp(start + k, max=E - 1)].long()]
+        ok = ((start + k < end) & (vm.squared_length(row[:, 0:3] - p) <= r2)
+              & (row[:, 9] <= budget))
+        fs = tb.bsdf_eval(mat_v, vp["ns"], vp["wo"], row[:, 3:6], tb.BSDF_ALL)
+        Phi = Phi + torch.where(ok[:, None], fs * row[:, 6:9], 0.0)
+        Mi = Mi + ok.to(torch.float32)
+        k += 1
+    return Phi, Mi, k
+
+
+def _host_reads(fn):
+    """fn's result and its device-to-host reads (aten::_local_scalar_dense,
+    which int() and bool() of a tensor call)."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, sum(e.count for e in prof.key_averages()
+                    if e.key == "aten::_local_scalar_dense")
+
+
+def test_vp_drain_reads_the_device_once_a_drain(tmp_path):
+    """With the automatic radius (the scene sets none) the fullest cell
+    holds about a hundred entries: the drain reads its count once and takes
+    the per-turn loop's turns, so Phi and Mi are bit-equal to it."""
+    path = _two_planes(tmp_path, spp=1, res=(24, 18))
+    scene, meta = tloader.load_scene(path, device="cpu")
+    assert meta.settings["initial_radius"] <= 0.0
+    n_pix, max_len = 24 * 18, 3
+    ids = torch.arange(n_pix, dtype=torch.int32)
+    _, vp = tsppm.make_ray_pass(scene, meta, 0, max_len, 1)(ids, 0)
+    radius = tsppm._auto_radius(vp, 24, 18).expand(n_pix).clone()
+    bbox_min, inv_len, max_r = tsppm.vp_cell_meta(vp, radius)
+    deposit, drain = tsppm.make_photon_passes(scene, meta, 77, max_len, n_pix)
+    rows, e_hash, e_idx = deposit(torch.arange(4096, dtype=torch.int32), 0,
+                                  bbox_min, inv_len, max_r)
+    zeros = (torch.zeros((n_pix, 3)), torch.zeros(n_pix))
+    args = (vp, radius, rows, e_hash, e_idx, bbox_min, inv_len)
+    (phi, mi), reads = _host_reads(lambda: drain(*args, *zeros))
+    (ref_phi, ref_mi, turns), ref_reads = _host_reads(
+        lambda: _drain_per_turn(scene, meta, max_len, n_pix, *args, *zeros))
+    assert turns > 50 and ref_reads == turns + 1 and reads == 1
+    assert torch.equal(phi, ref_phi) and torch.equal(mi, ref_mi)
+    assert float(mi.sum()) > n_pix
+
+
 # --- whole renders
 
 
@@ -459,12 +525,13 @@ def test_cli_renders_sppm_on_cpu(tmp_path):
 
 
 def test_render_dispatch_refuses_lt_and_bdpt(tmp_path):
-    """bdpt is refused; light_tracing, refused until the light tracer was
-    ported, renders now (tests/test_torch_lighttracer.py)."""
+    """Named for the refusals it replaced: light_tracing and bdpt, refused
+    until they were ported, render now (tests/test_torch_lighttracer.py,
+    tests/test_torch_bdpt.py); a camera-sampled method is still no
+    splatting method."""
     scene, meta = tloader.load_scene(_two_planes(tmp_path), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsplat.render_dispatch(scene, meta, "bdpt")
-    img = tsplat.render_dispatch(scene, meta, "light_tracing")
-    assert bool(img.isfinite().all()) and float(img.mean()) > 0
+    for method in ("light_tracing", "bdpt"):
+        img = tsplat.render_dispatch(scene, meta, method)
+        assert bool(img.isfinite().all()) and float(img.mean()) > 0
     with pytest.raises(ValueError, match="not a splatting method"):
         tsplat.render_dispatch(scene, meta, "ao")
