@@ -82,7 +82,21 @@ Phases, each printed on its own lines, and any failure exits non-zero:
      with path_tracing at 512 x 384, 4 spp, depth 5 at widths 8 and 4: 21
      launches a chunk, 252 a render, as the studio scene; the map's
      light-pick probability; 48 x 36 card against CPU under path_tracing,
-     light_tracing, bdpt, sppm (1 iteration) and whitted (depth 2).
+     light_tracing, bdpt, sppm (1 iteration) and whitted (depth 2);
+ 19. examples/bunny_fog.json (the studio scene in a homogeneous fog, the
+     glass bunny a jade subsurface material) with path_tracing at 512 x
+     384, 4 of 16 spp, depth 5 at widths 8 and 4: the studio scene's 21
+     launches a chunk + 4 BSSRDF trace calls x 4 samples at the camera hit +
+     2 in-scatter shadow rays x 5 volume samples = 47, 564 a render; the
+     widths' images agree; whitted at depth 3 (no glass, so a reflection
+     child alone: 4 nodes x (1 + 16 + 3 lights x 5) = 128 launches a chunk);
+     48 x 36 card against CPU under all six methods; the CLI on the scene
+     as shipped, which writes bunny_fog.ppm after bloom and tone mapping;
+ 20. examples/bunny_smoke.json (the studio scene with a heterogeneous smoke
+     grid around the bunnies and a marble subsurface bunny) with
+     path_tracing at 512 x 384, 4 spp, depth 5: 21 + 16 + one shadow ray a
+     march step (march_steps of the grid) a chunk; 48 x 36 card against
+     CPU.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Each kernel's row carries its time (CUDA events over launches queued behind
 a spinning kernel, so the host's launch rate stays out of it), its plain
@@ -107,6 +121,8 @@ BUNNY = os.path.join(REPO, "examples", "bunny.json")
 STUDIO = os.path.join(REPO, "examples", "bunny_studio.json")
 GALLERY = os.path.join(REPO, "examples", "bunny_gallery.json")
 SKY = os.path.join(REPO, "examples", "bunny_sky.json")
+FOG = os.path.join(REPO, "examples", "bunny_fog.json")
+SMOKE = os.path.join(REPO, "examples", "bunny_smoke.json")
 SETTINGS = {"render_method": "path_tracing", "max_ray_depth": 5,
             "sample_per_pixel": 4}
 CHUNK = 1 << 16
@@ -156,6 +172,10 @@ SKY_CHECKS = ({"render_method": "path_tracing", "sample_per_pixel": 1,
                "max_ray_depth": 5},
               {"render_method": "whitted", "sample_per_pixel": 1,
                "max_ray_depth": 2})
+# phase 19: the fog scene's Whitted depth, and its 48 x 36 checks under the
+# six methods
+FOG_WHITTED_DEPTH = 3
+FOG_CHECKS = SKY_CHECKS + ({"render_method": "ao", "sample_per_pixel": 1},)
 
 
 class SmokeFailure(Exception):
@@ -1375,6 +1395,141 @@ def env_pick_probability(path=SKY):
     check(0.2 <= share <= 0.8, f"env pick probability {share}")
 
 
+def medium_launches_per_chunk(meta):
+    """Trace launches the path tracer adds to a chunk for subsurface
+    materials and a volume: the BSSRDF's 4 trace calls (exit, its shadow
+    ray, probe, its shadow ray) for each of bssrdf_sample_num samples at the
+    camera hit, and the volume's any-hit shadow rays: 2 for each
+    homogeneous sample (equi-angular and distance), or one a march step."""
+    from goblin_tpu_torch.integrators.volume import march_steps
+
+    n = 4 * meta.settings["bssrdf_sample_num"] if meta.has_bssrdf else 0
+    vol = meta.volume
+    if vol is not None:
+        n += (2 * max(1, vol.sample_num) if vol.kind == "homogeneous"
+              else march_steps(vol))
+    return n
+
+
+def medium_path(path, widths, kind):
+    """Phases 19 and 20: a scene with subsurface materials and a volume of
+    the kind, path-traced at 512 x 384, 4 spp, depth 5 through
+    render_context at each width. Returns ({width: launches}, {width:
+    steady seconds a pass})."""
+    import numpy as np
+
+    images, counts, steady = {}, {}, {}
+    for wide in widths:
+        img, meta, launches, passes = counted_render(path, SETTINGS, wide,
+                                                     chunk_size=CHUNK)
+        check(meta.has_bssrdf and meta.volume is not None
+              and meta.volume.kind == kind and meta.has_null
+              and not meta.all_delta_lights, f"{path}: a feature is lost")
+        spec = meta.camera.film
+        spp = meta.settings["sample_per_pixel"]
+        depth = meta.settings["max_ray_depth"]
+        per_chunk = (studio_launches_per_chunk(depth)
+                     + medium_launches_per_chunk(meta))
+        want = per_chunk * -(-spec.x_res * spec.y_res // CHUNK) * spp
+        steady[wide] = float(np.mean(passes[1:]))
+        print(f"  width {wide}: {spec.x_res}x{spec.y_res} {spp} spp depth "
+              f"{depth}: seconds per pass "
+              f"{' '.join(f'{p:.4f}' for p in passes)} (the first with the "
+              f"load); launches {launches} (expected {want}: {per_chunk} a "
+              f"chunk, {medium_launches_per_chunk(meta)} of them the "
+              f"BSSRDF's and the volume's); image mean {img.mean():.6f} max "
+              f"{img.max():.4f}", flush=True)
+        check(launches == no_launches(**{f"trace_bvh{wide}": want}),
+              f"{path} width {wide}: launches {launches}, expected {want} of "
+              f"trace_bvh{wide} and no other")
+        images[wide], counts[wide] = img, launches
+    if len(widths) > 1:
+        a, b = images[widths[1]], images[widths[0]]
+        close = (np.abs(a - b) <= 1e-4 + 1e-3 * np.abs(b)).all(axis=-1)
+        rel_mean = abs(a.mean() - b.mean()) / b.mean()
+        print(f"  width {widths[1]} vs width {widths[0]}: pixels within 1e-4 "
+              f"+ 1e-3 rel {close.mean():.6f}, means rel diff "
+              f"{rel_mean:.2e}", flush=True)
+        check(close.mean() >= 0.99 and rel_mean <= 1e-3,
+              f"{path}: the widths' images disagree")
+    return counts, steady
+
+
+def fog_whitted_path():
+    """Phase 19: the fog scene under whitted at FOG_WHITTED_DEPTH. Returns
+    (launches, seconds of the pass with the load)."""
+    from goblin_tpu_torch.integrators.whitted import _specular_caps
+
+    ovr = {"render_method": "whitted", "sample_per_pixel": 1,
+           "max_ray_depth": FOG_WHITTED_DEPTH}
+    img, meta, launches, passes = counted_render(FOG, ovr, chunk_size=CHUNK)
+    spec = meta.camera.film
+    depth = meta.settings["max_ray_depth"]
+    can_reflect, can_transmit = _specular_caps(meta)
+    check(can_reflect and not can_transmit, "the fog scene's tree changed")
+    nodes = depth + 1  # a reflection child under each node
+    per_node = (1 + 4 * meta.settings["bssrdf_sample_num"]
+                + sum(meta.light_sample_nums) * (MAX_PUNCH + 1))
+    want = nodes * per_node * -(-spec.x_res * spec.y_res // CHUNK)
+    print(f"  {spec.x_res}x{spec.y_res} 1 spp, max_ray_depth {depth}: "
+          f"{nodes} nodes x {per_node} launches a chunk; {passes[0]:.3f} s "
+          f"with the load; launches {launches} (expected {want}); image mean "
+          f"{img.mean():.6f} max {img.max():.4f}", flush=True)
+    check(launches == no_launches(trace_bvh8=want),
+          f"fog whitted launches {launches}, expected {want} of trace_bvh8")
+    return launches, float(passes[0])
+
+
+def fog_cli():
+    """Phase 19: python -m goblin_tpu_torch examples/bunny_fog.json, in this
+    process from a scratch working directory (the film's relative file name
+    is taken from there): the PPM's header and size, bloom and tone mapping
+    each applied once. Returns the seconds."""
+    import numpy as np
+
+    from goblin_tpu_torch import render
+    from goblin_tpu_torch.camera import film
+
+    calls = {"bloom": 0, "tone_map": 0}
+    real = {name: getattr(film, name) for name in calls}
+
+    def counting(name):
+        def fn(*args, **kw):
+            calls[name] += 1
+            return real[name](*args, **kw)
+        return fn
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            os.chdir(tmp)
+            for name in calls:
+                setattr(film, name, counting(name))
+            t = time.perf_counter()
+            check(render.main([FOG]) == 0, "the CLI failed")
+            seconds = time.perf_counter() - t
+        finally:
+            for name, fn in real.items():
+                setattr(film, name, fn)
+            os.chdir(cwd)
+        out = os.path.join(tmp, "bunny_fog.ppm")
+        check(os.path.exists(out), "the CLI wrote no bunny_fog.ppm")
+        with open(out, "rb") as f:
+            data = f.read()
+    header = b"P6\n512 384\n255\n"
+    pixels = np.frombuffer(data[len(header):], np.uint8)
+    print(f"  CLI: {seconds:.2f} s (16 spp, load included); bunny_fog.ppm "
+          f"{len(data)} bytes, header {data[:len(header)]!r}, mean 8-bit "
+          f"value {pixels.mean():.2f}; bloom {calls['bloom']}x, tone map "
+          f"{calls['tone_map']}x", flush=True)
+    check(data.startswith(header) and len(data) == len(header) + 512 * 384 * 3,
+          "bunny_fog.ppm has the wrong header or size")
+    check(calls == {"bloom": 1, "tone_map": 1},
+          f"bloom and tone mapping not each applied once: {calls}")
+    check(5 < pixels.mean() < 250, "bunny_fog.ppm is black or white")
+    return seconds
+
+
 def run():
     import torch
 
@@ -1487,6 +1642,20 @@ def run():
     for ovr in SKY_CHECKS:
         reference_check(ovr, SKY)
 
+    print("[19] fog scene (a homogeneous volume, a subsurface bunny, tone "
+          "mapping, bloom, PPM), path tracing through render_context, "
+          "whitted, every method at 48 x 36, the CLI:", flush=True)
+    fog_counts, fog_s = medium_path(FOG, (8, 4), "homogeneous")
+    fog_whitted_launches, fog_whitted_s = fog_whitted_path()
+    for ovr in FOG_CHECKS:
+        reference_check(ovr, FOG)
+    fog_cli_s = fog_cli()
+
+    print("[20] smoke scene (a heterogeneous volume, a marble subsurface "
+          "bunny), path tracing through render_context:", flush=True)
+    smoke_counts, smoke_s = medium_path(SMOKE, (8,), "heterogeneous")
+    reference_check(PT_CHECK, SMOKE)
+
     print(f"  clocks.sm, power.draw, temperature: "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
     # every row's ms / plain_ms: the full-frame primary closest-hit launch
@@ -1522,6 +1691,9 @@ def run():
             "gallery light_tracing": lt_launches,
             "studio bdpt": bdpt_launches,
             "sky path_tracing": sky_counts[8],
+            "fog path_tracing": fog_counts[8],
+            f"fog whitted depth {FOG_WHITTED_DEPTH}": fog_whitted_launches,
+            "smoke path_tracing": smoke_counts[8],
         },
         "trace_bvh2": {"bunny sppm": sppm_counts[1]},
         "trace_bvh4": {
@@ -1529,6 +1701,7 @@ def run():
             "studio sppm": studio_sppm_launches,
             "gallery path_tracing": gallery_counts[4],
             "sky path_tracing": sky_counts[4],
+            "fog path_tracing": fog_counts[4],
         },
     }
     for r, width in ((row, 8), (k2_row, 1), (stats_row, 8)):
@@ -1561,7 +1734,12 @@ def run():
                       "load": whitted_s,
                       "gallery light_tracing chunks 2-12": lt_s,
                       "studio bdpt chunks 1-3 with the load": [
-                          float(c) for c in bdpt_s]}
+                          float(c) for c in bdpt_s],
+                      "fog path_tracing steady pass by width": fog_s,
+                      f"fog whitted depth {FOG_WHITTED_DEPTH} pass with the "
+                      "load": fog_whitted_s,
+                      "fog CLI 16 spp": fog_cli_s,
+                      "smoke path_tracing steady pass": smoke_s[8]}
     # no render path runs the stats instance: its row counts phase 7's census
     stats_row["launches"] = stats_launches
     stats_row["launches_counted_in"] = "phase 7's visit census"

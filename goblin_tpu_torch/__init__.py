@@ -6,9 +6,9 @@ neither it nor JAX. Sub-packages mirror ``goblin_tpu``'s names
 ``lights``, ``camera``, ``integrators``, ``io``) so each function's
 counterpart is found by name.
 
-Ported so far: ``examples/bunny.json`` rendered with path tracing and
-with SPPM, its own method: load/bake -> raygen -> BVH trace (CUDA kernels:
-``csrc/trace_bvh8.cu`` at the default trace width 8, ``csrc/trace_bvh2.cu``
-at width 1) -> shading, NEE and the photon walk -> film -> EXR. Scene
-features outside those paths make the loader raise ``NotImplementedError``.
+It loads every scene ``goblin_tpu`` loads and renders it by its six
+methods (path tracing, SPPM, AO, Whitted, light tracing, BDPT): load/bake
+-> raygen -> BVH trace (CUDA kernels: ``csrc/trace_bvh8.cu`` at trace
+widths 8 and 4, ``csrc/trace_bvh2.cu`` at width 1) -> shading, lights,
+subsurface transport and media -> film -> EXR or PPM.
 """

@@ -3,9 +3,11 @@ what the port's example scenes need).
 
     python -m goblin_tpu_torch.assets examples/textures/gallery.exr
     python -m goblin_tpu_torch.assets examples/textures/sky.exr
+    python -m goblin_tpu_torch.assets examples/volumes/smoke.vol
 
-write the image texture of examples/bunny_gallery.json and the environment
-map of examples/bunny_sky.json anew (the file's name picks the image).
+write the image texture of examples/bunny_gallery.json, the environment
+map of examples/bunny_sky.json and the density grid of
+examples/bunny_smoke.json anew (the file's name picks the asset).
 """
 
 from __future__ import annotations
@@ -15,10 +17,14 @@ import sys
 
 import numpy as np
 
+from .integrators.volume import write_vol
 from .io.exr import write_exr
 
 GALLERY_SHAPE = (120, 200)  # rows, columns: not powers of two on purpose
 SKY_SHAPE = (128, 256)  # rows (theta), columns (phi) of the lat-long sky
+SMOKE_SHAPE = (64, 64, 64)  # (nz, ny, nx) of the density grid
+SMOKE_BBOX = (0.0, 0.0, 0.0, 1.0, 1.0, 1.0)  # the grid's box; the scene
+# places it by the volume's transform
 
 
 def make_gallery_image(seed: int = 7) -> np.ndarray:
@@ -73,7 +79,37 @@ def make_sky_image() -> np.ndarray:
     return img.astype(np.float32)
 
 
+def make_smoke_grid(seed: int = 11) -> np.ndarray:
+    """The smoke scene's density grid, (64, 64, 64) float16 (z, y, x) over
+    the unit box, made from seed: seven soft gaussian puffs (peak density
+    1.5-4 a unit of the box, radii 0.06-0.16) whose sum is modulated by a
+    gentle wave, fading to zero at the box's faces so the medium has no hard
+    edge."""
+    nz, ny, nx = SMOKE_SHAPE
+    rng = np.random.default_rng(seed)
+    z, y, x = np.meshgrid(*((np.arange(n) + 0.5) / n for n in (nz, ny, nx)),
+                          indexing="ij")
+    dens = np.zeros(SMOKE_SHAPE)
+    for _ in range(7):
+        c = rng.uniform(0.2, 0.8, size=3)
+        r = rng.uniform(0.06, 0.16)
+        peak = rng.uniform(1.5, 4.0)
+        d2 = (x - c[0]) ** 2 + (y - c[1]) ** 2 + (z - c[2]) ** 2
+        dens += peak * np.exp(-d2 / (2.0 * r * r))
+    phase = rng.uniform(0.0, 2.0 * np.pi, size=3)
+    dens *= 0.75 + 0.25 * np.sin(2 * np.pi * (3 * x + phase[0])) \
+        * np.sin(2 * np.pi * (2 * y + phase[1])) \
+        * np.sin(2 * np.pi * (3 * z + phase[2]))
+    fade = np.minimum.reduce([np.clip(v / 0.1, 0.0, 1.0) for v in
+                              (x, y, z, 1 - x, 1 - y, 1 - z)])
+    return (dens * fade).astype(np.float16)
+
+
 if __name__ == "__main__":
     out = sys.argv[1]
-    write_exr(out, make_sky_image() if os.path.basename(out).startswith("sky")
-              else make_gallery_image())
+    name = os.path.basename(out)
+    if name.endswith(".vol"):
+        write_vol(out, make_smoke_grid(), SMOKE_BBOX)
+    else:
+        write_exr(out, make_sky_image() if name.startswith("sky")
+                  else make_gallery_image())

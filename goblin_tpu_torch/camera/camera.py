@@ -9,11 +9,15 @@ LH D3D projection with z in [0, 1], screen = ((ndc.x + 1) / 2 * x_res,
 and lens samples are given, ray differentials at +1 pixel, mint = 1e-3.
 The importance side (sample_position, sample_direction, eval_we,
 pdf_position, pdf_direction; src/GoblinCamera.cpp:150-288) is the
-perspective camera's, with and without a lens.
+perspective camera's, with and without a lens. The movement helpers
+(rotate, translate, roll, pitch, yaw, rotate_x / _y / _z; reference
+src/GoblinCamera.h:110-185) return a new CameraSpec: the spec is frozen,
+so a render takes the moved camera by being handed the new one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from functools import cached_property
 
@@ -53,6 +57,14 @@ class CameraSpec:
     @cached_property
     def look(self) -> np.ndarray:
         return self._rot[:, 2]
+
+    @cached_property
+    def right(self) -> np.ndarray:
+        return self._rot[:, 0]
+
+    @cached_property
+    def up(self) -> np.ndarray:
+        return self._rot[:, 1]
 
     @cached_property
     def view(self) -> np.ndarray:
@@ -250,3 +262,54 @@ class CameraSpec:
         cos_t = vm.dot(wo.new_tensor(self.look.tolist()).expand(wo.shape), wo)
         return self.focal_distance ** 2 / torch.clamp(
             self.film_area * cos_t ** 3, min=1e-20)
+
+
+def _quat_mul(a, b):
+    aw, ax, ay, az = a
+    bw, bx, by, bz = b
+    return (aw * bw - ax * bx - ay * by - az * bz,
+            aw * bx + ax * bw + ay * bz - az * by,
+            aw * by - ax * bz + ay * bw + az * bx,
+            aw * bz + ax * by - ay * bx + az * bw)
+
+
+def rotate(spec: CameraSpec, axis, angle: float) -> CameraSpec:
+    """orientation' = normalize(Quaternion(axis, angle) * orientation)
+    (reference Camera::rotate)."""
+    ax = np.asarray(axis, np.float64)
+    ax = ax / max(np.linalg.norm(ax), 1e-20)
+    h = 0.5 * float(angle)
+    o = _quat_mul((np.cos(h), *(np.sin(h) * ax)), spec.orientation)
+    n = max(np.sqrt(sum(v * v for v in o)), 1e-20)
+    return dataclasses.replace(spec, orientation=tuple(float(v) / n for v in o))
+
+
+def translate(spec: CameraSpec, d) -> CameraSpec:
+    """position += d (reference Camera::translate)."""
+    return dataclasses.replace(
+        spec, position=tuple(float(p) + float(v)
+                             for p, v in zip(spec.position, d)))
+
+
+def roll(spec: CameraSpec, angle: float) -> CameraSpec:
+    return rotate(spec, spec.look, angle)
+
+
+def pitch(spec: CameraSpec, angle: float) -> CameraSpec:
+    return rotate(spec, spec.right, angle)
+
+
+def yaw(spec: CameraSpec, angle: float) -> CameraSpec:
+    return rotate(spec, spec.up, angle)
+
+
+def rotate_x(spec: CameraSpec, angle: float) -> CameraSpec:
+    return rotate(spec, (1.0, 0.0, 0.0), angle)
+
+
+def rotate_y(spec: CameraSpec, angle: float) -> CameraSpec:
+    return rotate(spec, (0.0, 1.0, 0.0), angle)
+
+
+def rotate_z(spec: CameraSpec, angle: float) -> CameraSpec:
+    return rotate(spec, (0.0, 0.0, 1.0), angle)

@@ -2,7 +2,9 @@
 splats and image output (port of goblin_tpu/camera/film.py).
 
 Filters are evaluated in closed form, with the reference's normalisation
-semantics (src/GoblinFilter.cpp, GoblinFilm.cpp:10-37).
+semantics (src/GoblinFilter.cpp, GoblinFilm.cpp:10-37). The output takes
+the reference's post-process in its order, bloom then tone mapping, and is
+written as EXR or as an 8-bit PPM (any other name gets ".ppm").
 """
 
 from __future__ import annotations
@@ -97,6 +99,9 @@ class FilmSpec:
     y_res: int = 512
     crop: tuple = (0.0, 1.0, 0.0, 1.0)
     filename: str = "goblin.exr"
+    tone_mapping: bool = False
+    bloom_radius: float = 0.0
+    bloom_weight: float = 0.0
     filter: FilterSpec = field(default_factory=FilterSpec)
 
     @property
@@ -232,8 +237,68 @@ def to_image(color, weight, normalize: bool = True):
     return color
 
 
+def luminance(rgb):
+    return (0.212671 * rgb[..., 0] + 0.715160 * rgb[..., 1]
+            + 0.072169 * rgb[..., 2])
+
+
+def tone_map(img):
+    """Reinhard's photographic tone mapping as the reference implements it,
+    its log(1e4 + y) world adaptation included
+    (src/GoblinImageIO.cpp:223-237)."""
+    y = luminance(img)
+    ywa = float(torch.exp(torch.log(1e4 + y).mean()))
+    inv_y2 = 1.0 / (ywa * ywa)
+    s = (1.0 + y * inv_y2) / (1.0 + y)
+    return img * s[..., None]
+
+
+def bloom(img, radius: float, weight: float):
+    """The reference's bloom (src/GoblinImageIO.cpp:169-219): each pixel
+    blended with the (1 - d / fw)^4 weighted mean of its neighbours within
+    fw = ceil(radius max(W, H)) // 2 pixels, the pixel itself left out, the
+    mean normalised by the weight that lies on the image. Both
+    convolutions go through torch.fft in float64 (numpy's precision in
+    goblin_tpu), zero-padded, on img's device."""
+    if radius <= 0.0 or weight <= 0.0:
+        return img
+    h, w = img.shape[:2]
+    fw = int(np.ceil(radius * max(w, h))) // 2
+    if fw < 1:
+        return img
+    f64 = torch.float64
+    k = torch.arange(-fw + 1, fw, dtype=f64, device=img.device)
+    d = torch.sqrt(k[None, :] * k[None, :] + k[:, None] * k[:, None]) / fw
+    kern = torch.clamp(1.0 - d, min=0.0) ** 4
+    kern[fw - 1, fw - 1] = 0.0
+    size = (h + kern.shape[0] - 1, w + kern.shape[1] - 1)
+    K = torch.fft.rfft2(kern, s=size)
+
+    def conv(x):
+        full = torch.fft.irfft2(torch.fft.rfft2(x, s=size) * K, s=size)
+        return full[..., fw - 1:fw - 1 + h, fw - 1:fw - 1 + w]
+
+    norm = conv(torch.ones((h, w), dtype=f64, device=img.device))
+    out = conv(img.permute(2, 0, 1).to(f64)).permute(1, 2, 0)
+    out = (out / torch.clamp(norm, min=1e-12)[..., None]).to(torch.float32)
+    return (1.0 - weight) * img + weight * out
+
+
 def write_image(spec: FilmSpec, image) -> str:
-    """Write the image to spec.filename as EXR. Returns the path."""
+    """Post-process the image as the film asks (bloom, then tone mapping)
+    and write it to spec.filename: EXR for a name ending in .exr, else an
+    8-bit PPM (".ppm" appended to a name without it). Returns the path."""
+    img = image.detach().to(torch.float32)
+    if spec.bloom_radius > 0.0 and spec.bloom_weight > 0.0:
+        img = bloom(img, spec.bloom_radius, spec.bloom_weight)
+    if spec.tone_mapping:
+        img = tone_map(img)
+    img = img.cpu().numpy()
     path = spec.filename
-    exr_io.write_exr(path, image.detach().cpu().numpy())
+    if path.endswith(".exr"):
+        exr_io.write_exr(path, img)
+        return path
+    if not path.endswith(".ppm"):
+        path = path + ".ppm"
+    exr_io.write_ppm(path, img)
     return path

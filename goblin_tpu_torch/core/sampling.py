@@ -92,6 +92,53 @@ def uniform_sample_disk(u1, u2):
     return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
 
 
+def gaussian_sample_2d(u1, u2, falloff, r_max=None):
+    """(x, y) with density ~ exp(-falloff r^2), truncated to r <= r_max when
+    r_max is given -> (..., 2)."""
+    u1 = torch.clamp(u1, min=1e-12)
+    if r_max is None:
+        r = torch.sqrt(torch.log(u1) / -falloff)
+    else:
+        r = torch.sqrt(torch.log(
+            1.0 - u1 * (1.0 - torch.exp(-falloff * r_max * r_max))) / -falloff)
+    theta = TWO_PI * u2
+    return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
+
+
+def gaussian_sample_2d_pdf(x, y, falloff, r_max=None):
+    p = INV_PI * falloff * torch.exp(-falloff * (x * x + y * y))
+    if r_max is None:
+        return p
+    return p / (1.0 - torch.exp(-falloff * r_max * r_max))
+
+
+def exponential_sample(u, falloff):
+    return -torch.log(torch.clamp(u, min=1e-12)) / falloff
+
+
+def exponential_pdf(x, falloff):
+    return falloff * torch.exp(-falloff * x)
+
+
+def exponential_sample_range(u, sigma, a, b):
+    """t in [a, b] with density ~ exp(-sigma (t - a))."""
+    return a - torch.log(1.0 - u * (1.0 - torch.exp(sigma * (a - b)))) / sigma
+
+
+def exponential_pdf_range(t, sigma, a, b):
+    return sigma / (torch.exp(sigma * (t - a)) - torch.exp(sigma * (t - b)))
+
+
+def equi_angular_sample(u, D, theta_a, theta_b):
+    """Kulla-Fajardo equi-angular distance along a ray, measured from the
+    point nearest the light (D away from it)."""
+    return D * torch.tan((1.0 - u) * theta_a + u * theta_b)
+
+
+def equi_angular_pdf(t, D, theta_a, theta_b):
+    return D / ((theta_b - theta_a) * (D * D + t * t))
+
+
 def power_heuristic(n_a, pdf_a, n_b, pdf_b):
     """Veach power heuristic (beta=2) MIS weight for strategy A."""
     a = n_a * pdf_a

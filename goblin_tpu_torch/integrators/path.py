@@ -12,6 +12,9 @@ image-based light samples the map for NEE (shadow maxt 3e37), and a BSDF
 ray that escapes takes the map's radiance with MIS against the map's pdf.
 When every light is a delta light and there is no environment, a BSDF ray
 can never hit an emitter, so the last bounce skips its continuation trace.
+A subsurface material adds its BSSRDF term once, at the camera hit, and a
+volume attenuates and scatters along the camera ray up to that hit; a
+scene without lights draws neither.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ from ..lights import envmap
 from ..lights import lights as lt
 from ..scene import intersect as scn
 from ..shading import bsdf as bx
+from .bssrdf import subsurface_L
 from .common import DIM_BASE, spp_grid, stratified_1d, stratified_2d
 from .materials import gather_material
+from .volume import apply_volume
 
 # per-bounce dimension layout (goblin_tpu's)
 DIM_PICK = DIM_BASE + 0
@@ -81,6 +86,11 @@ def make_li(meta, max_depth=None):
                         _env_le(scene, meta, ray["d"]))
         if meta.n_lights == 0:
             return L
+        if meta.has_bssrdf:
+            # subsurface transport, once at the camera hit (reference
+            # src/GoblinPathtracer.cpp:68-70)
+            L = L + subsurface_L(scene, meta, frag, frag["hit"], pixel_ids,
+                                 s_idx, seed)
 
         def bounce(state, b, trace_cont=True):
             L, throughput, frag, active = state
@@ -213,6 +223,8 @@ def make_li(meta, max_depth=None):
             state = bounce(state, b)
         if skip_last:
             state = bounce(state, max_depth - 2, trace_cont=False)
-        return state[0]
+        # the medium over the camera ray's segment, up to the camera hit
+        return apply_volume(scene, meta, ray, frag["t"], state[0], pixel_ids,
+                            s_idx, seed)
 
     return li

@@ -12,12 +12,13 @@ the order they are made, the reflection child and all below it before the
 refraction child, and a node's number keys its sample streams.
 
 The tree is pruned by what the scene's materials can do: reflection
-children exist only where a specular-reflective material (transparent or
-mirror, mask-wrapped included) is present, refraction children only with a
-transparent one. A Lambert / Blinn scene is a single node; with a
+children exist only where a specular-reflective material (transparent,
+mirror or subsurface, mask-wrapped included) is present, refraction
+children only with a transparent one. A Lambert / Blinn scene is a single node; with a
 transparent material the tree is the reference's own, 2^(depth + 1) - 1
 nodes. A node whose ray escapes takes the environment map's radiance, and
-the image-based light's direct light samples the map.
+the image-based light's direct light samples the map. A subsurface
+material adds its BSSRDF term at every node, keyed by the node's number.
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ from ..lights import envmap
 from ..lights import lights as lt
 from ..scene import intersect as scn
 from ..shading import bsdf as bx
-from ..shading.bsdf import MAT_MIRROR, MAT_TRANSPARENT
+from ..shading.bsdf import MAT_MIRROR, MAT_SUBSURFACE, MAT_TRANSPARENT
+from .bssrdf import subsurface_L
 from .common import DIM_BASE
 from .materials import gather_material
 from .path import _area_light_Le, _em_tri_data, _env_le
@@ -47,7 +49,8 @@ def _specular_caps(meta):
     kinds = set(meta.material_kinds)
     if not kinds:
         return True, True  # the table is unknown: prune nothing
-    return bool(kinds & {MAT_TRANSPARENT, MAT_MIRROR}), MAT_TRANSPARENT in kinds
+    return (bool(kinds & {MAT_TRANSPARENT, MAT_MIRROR, MAT_SUBSURFACE}),
+            MAT_TRANSPARENT in kinds)
 
 
 def _direct_light(scene, meta, frag, mat, active, pixel_ids, s_idx, seed,
@@ -145,10 +148,6 @@ def make_li(meta, max_depth=None):
     GoblinRenderer.cpp:618-620)."""
     if max_depth is None:
         max_depth = int(meta.settings.get("max_ray_depth", 5))
-    if meta.has_bssrdf:
-        raise NotImplementedError(
-            "Whitted's subsurface arm is not in goblin_tpu_torch yet "
-            "(ROADMAP Queue 1 item 12c)")
     can_reflect, can_transmit = _specular_caps(meta)
 
     def li(scene, meta_, ray, pixel_ids, s_idx, seed):
@@ -167,6 +166,10 @@ def make_li(meta, max_depth=None):
                                     _env_le(scene, meta, d_in), 0.0)
             if meta.n_lights == 0:
                 return L
+
+            if meta.has_bssrdf:
+                L = L + subsurface_L(scene, meta, frag, hit, pixel_ids,
+                                     s_idx, seed, bounce=node_tag)
 
             def u(dim):
                 return hash_uniform(seed, pixel_ids, s_idx, node_tag, dim)

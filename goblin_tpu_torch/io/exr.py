@@ -188,3 +188,15 @@ def read_exr(path: str) -> np.ndarray:
                         raw[rpos:rpos + nbytes], dtype=dtypes[name])
                 rpos += nbytes
     return out
+
+
+def write_ppm(path: str, image: np.ndarray, gamma: float = 2.2) -> None:
+    """An 8-bit binary PPM (P6) of the image clipped to [0, 1] and
+    gamma-encoded (reference src/GoblinImageIO.cpp, the PPM path)."""
+    img = np.clip(np.asarray(image, dtype=np.float32), 0.0, 1.0)
+    img = np.power(img, 1.0 / gamma)
+    data = (img[:, :, :3] * 255.0 + 0.5).astype(np.uint8)
+    h, w = data.shape[:2]
+    with open(path, "wb") as f:
+        f.write(f"P6\n{w} {h}\n255\n".encode())
+        f.write(data.tobytes())

@@ -6,7 +6,9 @@ sppm).
 
 The method defaults to the scene's own render_setting (bunny.json: sppm).
 The device defaults to cuda; asking for cuda without a card raises, and
-the CPU (the kernels' plain versions) runs only when asked for.
+the CPU (the kernels' plain versions) runs only when asked for. The image
+goes where the film's file says, as the film asks: bloomed, then tone
+mapped, as EXR or as an 8-bit PPM (camera/film.py::write_image).
 """
 
 from __future__ import annotations

@@ -27,7 +27,8 @@ from ..lights.envmap import bake_env, env_luminance
 from ..lights.lights import DELTA_LIGHTS, LIGHT_AREA, LightsBuild, bake_lights
 from ..ops.trace import (BIN_STACK, bin_depth, bin_stack_bound, bin_tables,
                          check_wide_depth, collapse_wide, tri_rows)
-from ..shading.bsdf import MAT_LAMBERT, MAT_MASK
+from ..shading.bsdf import MAT_LAMBERT, MAT_MASK, MAT_SUBSURFACE
+from ..shading.bssrdf import fresnel_a
 from ..shading.textures import TexSpec, TextureSystem
 
 MAX_LEAF = 32
@@ -47,6 +48,10 @@ class MatSpec:
     eta: float = 1.5
     k: float = -1.0
     inner: int = -1  # mask: the wrapped material's row
+    # subsurface: sigma_a, sigma_s' and the phase asymmetry g
+    absorb: tuple = (0.0, 0.0, 0.0)
+    scatter_prime: tuple = (0.0, 0.0, 0.0)
+    g: float = 0.0
     bump_tex: int = -1  # float texture id of the bump map, or -1
     normal_tex: int = -1  # color texture id of the normal map, or -1
 
@@ -86,9 +91,12 @@ class SceneMeta:
     # holds its map)
     has_env: bool = False
     env_light_id: int = -1
-    # a subsurface material: the loader refuses it, so this stays False
-    # until its integrator is ported
+    # a subsurface material is in the scene (PT and Whitted add its BSSRDF
+    # term; scene["mat_sigma_a"] and the rest hold its tables)
     has_bssrdf: bool = False
+    # the scene's participating medium (integrators.volume.VolumeSpec; a
+    # heterogeneous one's grid is scene["vol_grid"]), or None
+    volume: object = None
     # NEE samples of each light (reference Light::getSamplesNum), which
     # Whitted's direct lighting takes
     light_sample_nums: tuple = ()
@@ -160,6 +168,9 @@ class SceneBuilder:
         self.env_image = None
         self.env_filter = np.ones(3, np.float32)
         self.env_orientation = np.array([1.0, 0.0, 0.0, 0.0], np.float32)
+        # the participating medium and a heterogeneous one's density grid
+        self.volume = None
+        self.vol_grid = None
 
     def add_color_texture(self, spec: TexSpec) -> int:
         self.color_textures.append(spec)
@@ -365,6 +376,16 @@ class SceneBuilder:
                                        np.int32)),
             "mat_normal": dev(np.asarray([m.normal_tex for m in self.materials],
                                          np.int32)),
+            # the BSSRDF's tables, zero rows but for subsurface materials'
+            # sigmas and g (A is every row's)
+            "mat_sigma_a": dev(np.asarray([m.absorb for m in self.materials],
+                                          np.float32)),
+            "mat_sigma_sp": dev(np.asarray(
+                [m.scatter_prime for m in self.materials], np.float32)),
+            "mat_ss_g": dev(np.asarray([m.g for m in self.materials],
+                                       np.float32)),
+            "mat_ss_A": dev(np.asarray([fresnel_a(m.eta)
+                                        for m in self.materials], np.float32)),
             "tex_atlas": dev(tex_sys.atlas),
             "ftex_atlas": dev(ftex_sys.atlas),
             "tex_const": dev(tex_sys.const),
@@ -377,6 +398,8 @@ class SceneBuilder:
             "em_rows": dev(np.concatenate([em_v[:, 0], e1, e2, em_n], axis=-1)
                            .astype(np.float32)),
         })
+        if self.vol_grid is not None:
+            scene["vol_grid"] = dev(np.asarray(self.vol_grid, np.float32))
         if has_env:
             scene["env"] = bake_env(self.env_image, self.env_filter,
                                     self.env_orientation, device)
@@ -420,6 +443,8 @@ class SceneBuilder:
             has_perturb=any(m.bump_tex >= 0 or m.normal_tex >= 0
                             for m in self.materials),
             has_null=any(m.kind == MAT_MASK for m in self.materials),
+            has_bssrdf=any(m.kind == MAT_SUBSURFACE for m in self.materials),
+            volume=self.volume,
             has_env=has_env,
             env_light_id=self.env_light_id,
             light_sample_nums=tuple(int(n) for n in self.lights.sample_nums),

@@ -1,16 +1,17 @@
-"""JSON scene loader (port of goblin_tpu/scene/loader.py for the subset of
-the reference schema that the ported integrators render).
+"""JSON scene loader (port of goblin_tpu/scene/loader.py): every part of
+the reference schema that goblin_tpu loads.
 
-Supported: meshes (OBJ), analytic spheres and disks placed by instances,
-constant / checkerboard / scale / image textures of color and float format
-with uv or spherical mapping, bump and normal maps, lambert / blinn /
-transparent / mirror / mask materials, point / spot / directional / area /
-image-based lights, perspective (pinhole or thin-lens) and orthographic
-cameras, box / triangle / gaussian / mitchell film filters and EXR output.
-Any other feature raises NotImplementedError naming the ROADMAP item that
-brings it, and a texture or environment file that does not load or an
-unknown texture type, mapping or channel raises ValueError, where
-goblin_tpu prints and goes on; nothing is silently skipped. Unknown texture and material names resolve to the
+Meshes (OBJ), analytic spheres and disks placed by instances, constant /
+checkerboard / scale / image textures of color and float format with uv or
+spherical mapping, bump and normal maps, lambert / blinn / transparent /
+mirror / subsurface / mask materials, point / spot / directional / area /
+image-based lights, a homogeneous or heterogeneous (Mitsuba .vol) volume,
+perspective (pinhole or thin-lens) and orthographic cameras, box /
+triangle / gaussian / mitchell film filters, tone mapping, bloom, and EXR
+or PPM output. A texture, environment or density-grid file that does not
+load, an unknown material, light or texture type, mapping or channel
+raises ValueError, where goblin_tpu prints and goes on; nothing is
+silently skipped. Unknown texture and material names resolve to the
 magenta error assets, as in the reference (src/GoblinScene.cpp:112-128).
 
 Material and texture ids are table rows, so materials are added in
@@ -33,11 +34,13 @@ import torch
 from ..camera.camera import CameraSpec
 from ..camera.film import FilmSpec, FilterSpec
 from ..geometry.mesh import load_obj
+from ..integrators.volume import VolumeSpec, load_vol
 from ..io.exr import read_exr
 from ..lights.lights import (LIGHT_AREA, LIGHT_DIRECTIONAL, LIGHT_IBL,
                              LIGHT_POINT, LIGHT_SPOT)
 from ..shading.bsdf import (MAT_BLINN, MAT_LAMBERT, MAT_MASK, MAT_MIRROR,
-                            MAT_TRANSPARENT)
+                            MAT_SUBSURFACE, MAT_TRANSPARENT)
+from ..shading.bssrdf import convert_from_diffuse, fresnel_a
 from ..shading.textures import (ADDRESS_BORDER, ADDRESS_CLAMP, ADDRESS_REPEAT,
                                 FILTER_BILINEAR, FILTER_EWA, FILTER_NEAREST,
                                 FILTER_TRILINEAR, MAP_SPHERICAL,
@@ -45,12 +48,6 @@ from ..shading.textures import (ADDRESS_BORDER, ADDRESS_CLAMP, ADDRESS_REPEAT,
                                 TEX_SCALE, TexSpec)
 from .bake import InstanceRecord, MatSpec, SceneBuilder
 from .params import ParamSet, get_quaternion, get_transform
-
-
-def _unsupported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not in goblin_tpu_torch yet (ROADMAP Queue 1 item {item})"
-    )
 
 
 def _add_black(builder) -> int:
@@ -162,6 +159,93 @@ def _parse_texture(out, p, scene_dir, color_tex, float_tex):
     table[p.get_string("name")] = add(spec)
 
 
+def _parse_volume(vp, scene_dir):
+    """The scene's volume section -> (VolumeSpec, density grid or None). A
+    heterogeneous volume's box is its grid file's; a grid that does not load
+    raises ValueError (goblin_tpu prints and renders an empty 1 x 1 x 1
+    grid)."""
+    m = get_transform(vp)
+    m_inv = np.linalg.inv(m)
+    common = dict(to_world=tuple(m.reshape(-1).tolist()),
+                  to_local=tuple(m_inv.reshape(-1).tolist()),
+                  g=vp.get_float("g", 0.0),
+                  sample_num=vp.get_int("sample_num", 5),
+                  step_size=vp.get_float("step_size", 0.1))
+    if vp.get_string("type", "homogeneous") == "heterogeneous":
+        gpath = _resolve_path(scene_dir, vp.get_string("density_grid"))
+        try:
+            grid, gb = load_vol(gpath)
+        except (OSError, ValueError, struct.error) as e:
+            raise ValueError(f"density grid {gpath!r} failed to load: "
+                             f"{e}") from e
+        return VolumeSpec(
+            kind="heterogeneous",
+            box_min=tuple(float(v) for v in gb[:3]),
+            box_max=tuple(float(v) for v in gb[3:]),
+            albedo=_vec3(vp, "albedo", (0.5, 0.5, 0.5)),
+            grid_shape=tuple(int(x) for x in grid.shape), **common), grid
+    return VolumeSpec(
+        kind="homogeneous",
+        box_min=_vec3(vp, "box_min", (0.0, 0.0, 0.0)),
+        box_max=_vec3(vp, "box_max", (1.0, 1.0, 1.0)),
+        attenuation=_vec3(vp, "attenuation", (0.0, 0.0, 0.0)),
+        albedo=_vec3(vp, "albedo", (0.0, 0.0, 0.0)),
+        emission=_vec3(vp, "emission", (0.0, 0.0, 0.0)), **common), None
+
+
+def _vec3(p, key, default):
+    return tuple(float(v) for v in p.get_vec3(key, default))
+
+
+# the marble of the reference's defaults (src/GoblinMaterial.cpp:909, 919)
+MARBLE_ABSORB = (0.0021, 0.0041, 0.0071)
+MARBLE_SCATTER_PRIME = (2.19, 2.62, 3.00)
+
+
+def _subsurface_spec(p, raw, builder, color_tex):
+    """A subsurface material: with Kd, its sigmas from Kd and mean_free_path
+    by convertFromDiffuse (src/GoblinMaterial.cpp:177-212, 884-902); else
+    absorb and scatter_prime, each a list or the name of a color texture
+    (its constant value), marble by default."""
+    spec = MatSpec(kind=MAT_SUBSURFACE,
+                   tex_c0=_color_tex_id(builder, color_tex, p, "Kr",
+                                        (1.0, 1.0, 1.0)),
+                   eta=p.get_float("index", 1.5), g=p.get_float("g", 0.0))
+    if p.has("Kd"):
+        sa, ssp = convert_from_diffuse(
+            p.get_vec3("Kd", (0.5, 0.5, 0.5)),
+            p.get_vec3("mean_free_path", (1.0, 1.0, 1.0)), fresnel_a(spec.eta))
+        spec.absorb = tuple(float(v) for v in sa)
+        spec.scatter_prime = tuple(float(v) for v in ssp)
+        return spec
+
+    def sigma(key, default):
+        v = raw.get(key)
+        if isinstance(v, str):
+            tid = color_tex.get(v, -1)
+            if tid < 0:
+                return default
+            return tuple(float(x)
+                         for x in builder.color_textures[tid].value[:3])
+        return default if v is None else tuple(float(x) for x in v)
+
+    spec.absorb = sigma("absorb", MARBLE_ABSORB)
+    spec.scatter_prime = sigma("scatter_prime", MARBLE_SCATTER_PRIME)
+    return spec
+
+
+def _color_tex_id(builder, color_tex, p, key, default=None):
+    """The named color texture's row; a new constant where the name is
+    unknown and a default is given; else the error magenta."""
+    name = p.get_string(key, "")
+    if name in color_tex:
+        return color_tex[name]
+    if default is not None:
+        return builder.add_color_texture(
+            TexSpec(value=np.asarray(default, np.float32)))
+    return 0
+
+
 def resolve_device(name) -> torch.device:
     """The device a name stands for; asking for cuda without a card raises
     (nothing falls back to the CPU)."""
@@ -195,6 +279,7 @@ def load_scene(path: str, overrides: dict | None = None, device="cuda",
         "sample_per_pixel": rs.get_int("sample_per_pixel", 1),
         "max_ray_depth": rs.get_int("max_ray_depth", 5),
         "ao_sample_num": rs.get_int("ao_sample_num", 25),
+        "bssrdf_sample_num": rs.get_int("bssrdf_sample_num", 4),
         "initial_radius": rs.get_float("initial_radius", -1.0),
         # BDPT's strategy isolation (reference GoblinBDPT.cpp:59-63)
         "debug_s": rs.get_int("debug_s", -1),
@@ -222,14 +307,9 @@ def load_scene(path: str, overrides: dict | None = None, device="cuda",
     if filter_spec.kind not in ("box", "triangle", "gaussian", "mitchell"):
         raise ValueError(f"unknown filter type {filter_spec.kind!r}")
     film_p = ParamSet(cam_raw.get("film", {}))
-    for key in ("tone_mapping", "bloom_radius", "bloom_weight"):
-        if film_p.get_float(key, 0.0):
-            raise _unsupported(f"film {key}", "16")
     res = film_p.get_vec2("resolution", (512.0, 512.0))
     default_out = os.path.splitext(os.path.basename(path))[0] + ".exr"
     out_file = film_p.get_string("file", os.path.join(scene_dir, default_out))
-    if not out_file.endswith(".exr"):
-        raise _unsupported("non-EXR film output", "16")
     ckind = cam_p.get_string("type", "perspective")
     lens_r = cam_p.get_float("lens_radius", 0.0)
     builder.camera = CameraSpec(
@@ -248,6 +328,9 @@ def load_scene(path: str, overrides: dict | None = None, device="cuda",
             crop=tuple(float(c) for c in
                        film_p.get_vec4("crop", (0.0, 1.0, 0.0, 1.0))),
             filename=out_file,
+            tone_mapping=film_p.get_bool("tone_mapping", False),
+            bloom_radius=film_p.get_float("bloom_radius", 0.0),
+            bloom_weight=film_p.get_float("bloom_weight", 0.0),
             filter=filter_spec,
         ),
     )
@@ -259,7 +342,8 @@ def load_scene(path: str, overrides: dict | None = None, device="cuda",
             to_world=get_transform(cam_p), is_camera_lens=True))
 
     if doc.get("volume"):
-        raise _unsupported("participating media (volume)", "12")
+        builder.volume, builder.vol_grid = _parse_volume(
+            ParamSet(doc["volume"]), scene_dir)
 
     # --- geometries
     geometries: dict[str, object] = {}
@@ -281,15 +365,7 @@ def load_scene(path: str, overrides: dict | None = None, device="cuda",
         _parse_texture(builder, ParamSet(raw), scene_dir, color_tex, float_tex)
 
     def color_tex_id(p, key, default=None):
-        """The named color texture's row; a new constant where the name is
-        unknown and a default is given; else the error magenta."""
-        name = p.get_string(key, "")
-        if name in color_tex:
-            return color_tex[name]
-        if default is not None:
-            return builder.add_color_texture(
-                TexSpec(value=np.asarray(default, np.float32)))
-        return 0
+        return _color_tex_id(builder, color_tex, p, key, default)
 
     def float_tex_id(p, key, default=None):
         name = p.get_string(key, "")
@@ -328,7 +404,7 @@ def load_scene(path: str, overrides: dict | None = None, device="cuda",
                 tex_c1=color_tex_id(p, "transparent_color", (1.0, 1.0, 1.0)),
                 inner=materials.get(p.get_string("material"), 0))
         elif mkind == "subsurface":
-            raise _unsupported("subsurface material", "12")
+            spec = _subsurface_spec(p, raw, builder, color_tex)
         else:
             raise ValueError(f"unknown material type {mkind!r}")
         if p.has("bumpmap"):

@@ -1,5 +1,5 @@
 """BSDF evaluation, pdf and sampling for Lambert, Blinn, transparent,
-mirror and mask materials (port of the matching parts of
+mirror, subsurface and mask materials (port of
 goblin_tpu/shading/bsdf.py).
 
 Every lane carries a material type id and its parameters; the models are
@@ -8,8 +8,9 @@ the scene are skipped (``_need``, goblin_tpu's static kind pruning),
 which changes no value. A mask material arrives flattened
 (integrators/materials.py): the lane holds its inner material plus
 is_masked, mask_alpha, mask_u and the transparent colour in c1, and the
-null lobe (wi = -wo, BSDF_NULL) is picked against alpha. Subsurface
-materials are refused by the loader.
+null lobe (wi = -wo, BSDF_NULL) is picked against alpha. A subsurface
+material's surface lobe is the dielectric's specular reflection alone (its
+transport under the surface is integrators/bssrdf.py's).
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ MAT_LAMBERT = 0
 MAT_BLINN = 1
 MAT_TRANSPARENT = 2
 MAT_MIRROR = 3
+MAT_SUBSURFACE = 4
 MAT_MASK = 5
 
 # lobe bitmask of each material type id 0-5 (goblin_tpu's _LOBE_BY_TYPE:
@@ -234,9 +236,10 @@ def bsdf_sample(mat, ns, dpdu, wo, u1, u2, u_comp, type_mask,
     else:
         wi_blinn = wi_lambert  # never selected
 
-    # dielectric specular reflect / refract
+    # dielectric specular reflect / refract (transparent, and subsurface's
+    # reflection)
     cosi = n_dot_wo.abs()
-    if _need(mat, MAT_TRANSPARENT):
+    if _need(mat, MAT_TRANSPARENT) or _need(mat, MAT_SUBSURFACE):
         entering = n_dot_wo > 0.0
         n_or = torch.where(entering[..., None], ns, -ns)
         ei = torch.where(entering, 1.0, mat["eta"])  # incident-side IOR
@@ -306,11 +309,13 @@ def bsdf_sample(mat, ns, dpdu, wo, u1, u2, u_comp, type_mask,
     is_blinn = mtype == MAT_BLINN
     is_transparent = mtype == MAT_TRANSPARENT
     is_mirror = mtype == MAT_MIRROR
+    is_subsurface = mtype == MAT_SUBSURFACE
     wi = torch.where(
         is_lambert[..., None], wi_lambert,
         torch.where(is_blinn[..., None], wi_blinn,
                     torch.where(is_transparent[..., None], wi_transparent,
-                                wi_mirror)))
+                                torch.where(is_subsurface[..., None],
+                                            wi_reflect, wi_mirror))))
     # smooth lobes: f and pdf by evaluating the model at the sampled wi
     f_l = _lambert_eval(mat, ns, wo, wi, BSDF_ALL)
     p_l = _lambert_pdf(mat, ns, wo, wi, BSDF_ALL)
@@ -319,16 +324,20 @@ def bsdf_sample(mat, ns, dpdu, wo, u1, u2, u_comp, type_mask,
         p_b = _blinn_pdf(mat, ns, wo, wi, BSDF_ALL)
     else:
         f_b, p_b = f_l, p_l
+    # subsurface: the dielectric's specular reflection, F / cos
+    f_subsurface = mat["c0"] * reflect_scale[..., None]
     f = torch.where(
         is_lambert[..., None], f_l,
         torch.where(is_blinn[..., None], f_b,
                     torch.where(is_transparent[..., None], f_transparent,
-                                mat["c0"] * mirror_scale[..., None])))
+                                torch.where(is_subsurface[..., None],
+                                            f_subsurface,
+                                            mat["c0"] * mirror_scale[..., None]))))
     pdf = torch.where(
         is_lambert, p_l,
         torch.where(is_blinn, p_b,
                     torch.where(is_transparent, pdf_transparent, 1.0)))
-    is_specular = is_transparent | is_mirror
+    is_specular = is_transparent | is_mirror | is_subsurface
     # the requested lobes must include the material's own
     pdf = torch.where((type_mask & lobe_of(mtype)) != 0, pdf, 0.0)
     # mirror back face

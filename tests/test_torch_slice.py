@@ -1,6 +1,6 @@
 """The whole path-tracing slice: goblin_tpu_torch vs goblin_tpu on a small
 bunny render, the port's independence from JAX, its CLI, and the
-loader's refusal of features outside the slice."""
+features the loader once refused, which load now."""
 
 import copy
 import dataclasses
@@ -19,6 +19,7 @@ from goblin_tpu.integrators import common as jcommon
 from goblin_tpu.integrators.path import make_li as j_make_li
 from goblin_tpu.scene import loader as jloader
 from goblin_tpu_torch import render as trender
+from goblin_tpu_torch.camera import film as tfilm
 from goblin_tpu_torch.integrators import common as tcommon
 from goblin_tpu_torch.scene import loader as tloader
 
@@ -27,6 +28,7 @@ BUNNY = os.path.join(REPO, "examples", "bunny.json")
 STUDIO = os.path.join(REPO, "examples", "bunny_studio.json")
 GALLERY = os.path.join(REPO, "examples", "bunny_gallery.json")
 SKY = os.path.join(REPO, "examples", "bunny_sky.json")
+SMOKE = os.path.join(REPO, "examples", "bunny_smoke.json")
 
 
 def _bunny_copy(tmp_path, x_res, y_res, spp, depth, **edits):
@@ -97,8 +99,9 @@ def test_port_imports_neither_jax_nor_goblin_tpu(tmp_path):
     """A fresh interpreter loads and renders a two-triangle scene on the CPU
     with goblin_tpu_torch, by path tracing and by SPPM at the trace widths,
     then the studio scene (every feature of its slice) at width 4, the
-    gallery scene (the texture chain) under whitted and the sky scene (the
-    map) under bdpt, and never imports jax or goblin_tpu."""
+    gallery scene (the texture chain) under whitted, the sky scene (the
+    map) under bdpt and the smoke scene (a heterogeneous volume and
+    subsurface materials), and never imports jax or goblin_tpu."""
     scene = _two_triangle_scene(tmp_path)
     script = textwrap.dedent(f"""
         import dataclasses, sys
@@ -138,6 +141,14 @@ def test_port_imports_neither_jax_nor_goblin_tpu(tmp_path):
         assert tuple(img.shape) == (12, 16, 3), img.shape
         assert bool(img.isfinite().all()) and float(img.mean()) > 0
         assert meta.has_env and "env" in scene
+        scene, meta = load_scene({SMOKE!r}, {{"sample_per_pixel": 1,
+                                 "max_ray_depth": 2}}, device="cpu")
+        film = dataclasses.replace(meta.camera.film, x_res=8, y_res=6)
+        meta.camera = dataclasses.replace(meta.camera, film=film)
+        img = common.render(scene, meta, make_li(meta))
+        assert tuple(img.shape) == (6, 8, 3), img.shape
+        assert bool(img.isfinite().all()) and float(img.mean()) > 0
+        assert meta.has_bssrdf and meta.volume.kind == "heterogeneous"
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "goblin_tpu" or m.startswith("goblin_tpu.")]
         assert not bad, bad
@@ -175,36 +186,60 @@ def _film(**film):
     return doc
 
 
-# features outside the slices so far, each with the ROADMAP item that brings
-# it (textures and bump maps, refused until the texture slice, load now:
-# tests/test_torch_textures.py). The "bdpt" and "image-based light" cases,
-# refused until this slice, now load and carry a feature that is still
-# refused: a bdpt scene with a volume, an image-lit scene with a
-# subsurface material (both load: test_bdpt_and_image_based_lights_render).
+# features that earlier slices refused, each now loaded (the refusal cases
+# kept their names as the features came: textures and bump maps in the
+# texture slice, bdpt and the image-based light in the slice after it,
+# tone mapping, bloom, non-EXR output, subsurface materials and volumes in
+# this one), and one the loader refuses as goblin_tpu does not: an unknown
+# material type (goblin_tpu renders it as its default Lambert)
 SUBSURFACE = {"name": "k", "type": "subsurface"}
 IBL = {"type": "ibl", "file": "x.exr"}
+HOMOGENEOUS = {"type": "homogeneous", "box_min": [-2, -2, -4],
+               "box_max": [2, 2, 1], "attenuation": [0.3, 0.3, 0.3],
+               "albedo": [0.5, 0.5, 0.5]}
 UNSUPPORTED = {
     "tone mapping": _film(tone_mapping=True),
     "bloom": _film(bloom_radius=0.1, bloom_weight=0.5),
     "non-EXR output": _film(file="out.ppm"),
     "bdpt": dict(TWO_TRIANGLES, render_setting={"render_method": "bdpt"},
-                 volume={"type": "homogeneous"}),
+                 volume=HOMOGENEOUS),
     "subsurface material": _with(TWO_TRIANGLES, "materials", SUBSURFACE),
-    "volume": dict(TWO_TRIANGLES, volume={"type": "homogeneous"}),
+    "volume": dict(TWO_TRIANGLES, volume=HOMOGENEOUS),
     "image-based light": _with(_with(TWO_TRIANGLES, "lights", IBL),
                                "materials", SUBSURFACE),
+    "unknown material type": _with(TWO_TRIANGLES, "materials",
+                                   {"name": "u", "type": "velvet"}),
 }
+STILL_REFUSED = {"unknown material type": (ValueError, "unknown material")}
 
 
 @pytest.mark.parametrize("name", sorted(UNSUPPORTED))
 def test_loader_refuses_features_outside_the_slice(tmp_path, name):
-    """The loader refuses what no slice has ported, naming the ROADMAP
-    item, and skips nothing silently."""
+    """Every feature that goblin_tpu loads, the port loads now: each case an
+    earlier slice refused renders finite on the CPU, its film written as
+    the film asks. The loader still refuses what goblin_tpu would skip
+    silently, and skips nothing."""
+    from goblin_tpu_torch.io.exr import write_exr
+
     _two_triangle_scene(tmp_path)
+    write_exr(str(tmp_path / "x.exr"), np.full((4, 8, 3), 0.5, np.float32))
     path = tmp_path / "x.json"
     path.write_text(json.dumps(UNSUPPORTED[name]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trender.render_context(str(path), device="cpu")
+    if name in STILL_REFUSED:
+        err, match = STILL_REFUSED[name]
+        with pytest.raises(err, match=match):
+            trender.render_context(str(path), device="cpu")
+        return
+    img, meta = trender.render_context(str(path), device="cpu")
+    assert tuple(img.shape) == (4, 4, 3)
+    assert bool(img.isfinite().all()) and float(img.mean()) > 0
+    out = tmp_path / "written"
+    out.mkdir()
+    spec = dataclasses.replace(meta.camera.film, filename=str(
+        out / os.path.basename(meta.camera.film.filename)))
+    written = tfilm.write_image(spec, img)
+    assert os.path.getsize(written) > 0
+    assert written.endswith(".ppm" if name == "non-EXR output" else ".exr")
 
 
 def test_bake_refuses_trees_deeper_than_the_kernel_stack(tmp_path,
