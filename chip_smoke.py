@@ -96,7 +96,23 @@ Phases, each printed on its own lines, and any failure exits non-zero:
      grid around the bunnies and a marble subsurface bunny) with
      path_tracing at 512 x 384, 4 spp, depth 5: 21 + 16 + one shadow ray a
      march step (march_steps of the grid) a chunk; 48 x 36 card against
-     CPU.
+     CPU;
+ 21. bunny.json's gradients: mean(L * [1, 2, 3]) over one sample of each
+     pixel at 512 x 384, depth 5, and its gradients with respect to the
+     light colour, tex_const and tri_rows, backward chunk by chunk (65,536
+     pixels), at trace widths 8, 4 and 1: finite gradients that agree
+     between widths, 8 launches a chunk in the forward and none in the
+     backward (24 a pass), the light colour's gradient against a central
+     finite difference at full size (within 1e-3 rel), and at 48 x 36 the
+     card's gradients against the CPU's; forward and forward + backward
+     seconds, peak memory a chunk;
+ 22. the train step on the gallery scene at 512 x 384, depth 5: 3 steps of
+     plain SGD on (light colours, tex_atlas) through make_train_step in
+     chunks of 65,536 pixel ids, each step's loss change against its
+     first-order prediction -eta |g|^2 (eta moving the loss by about 1%)
+     within 5%, 21 launches a chunk; then mesh_boundary_grad on the card
+     over tests/test_edge_grad.py's tetrahedron sweep against the CPU's
+     within 1e-5 rel.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Each kernel's row carries its time (CUDA events over launches queued behind
 a spinning kernel, so the host's launch rate stays out of it), its plain
@@ -176,6 +192,24 @@ SKY_CHECKS = ({"render_method": "path_tracing", "sample_per_pixel": 1,
 # six methods
 FOG_WHITTED_DEPTH = 3
 FOG_CHECKS = SKY_CHECKS + ({"render_method": "ao", "sample_per_pixel": 1},)
+
+
+# phase 21: bunny.json's gradient pass, at every trace width
+GRAD_SETTINGS = {"render_method": "path_tracing", "max_ray_depth": 5,
+                 "sample_per_pixel": 1}
+GRAD_WEIGHTS = (1.0, 2.0, 3.0)
+GRAD_WIDTHS = (8, 4, 1)
+# a light colour channel's central difference: its value times
+FD_STEP = 0.25
+FD_RTOL = 1e-3
+# phase 22: SGD steps on the gallery scene, each step's eta chosen to move
+# the loss by TRAIN_MOVE, the move held to its first-order prediction
+TRAIN_STEPS = 3
+TRAIN_MOVE = 0.01
+TRAIN_RTOL = 5e-2
+# and tests/test_edge_grad.py's tetrahedron sweep, card against CPU
+EDGE_SWEEP = (-0.05, 0.0, 0.12, 0.3)
+EDGE_RTOL = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -572,7 +606,7 @@ def compare_bin_kernel(scene8, meta8, scene1):
         "ms_chunk": ms["primary/closest"]["chunk"],
         "plain_ms_chunk": ms["primary/closest"]["plain_chunk"],
     }
-    row.update(bound(n, table_bytes(scene1, tt._BIN_TABLES), 2 * census[0],
+    row.update(bound(n, table_bytes(scene1, tt.BIN_TABLES), 2 * census[0],
                      census[2], row["ms"]))
     return row, k1_ms
 
@@ -1167,6 +1201,15 @@ def ao_path():
                                                    True), KERNEL_REPS),
            "plain_ms": time_ms(lambda: tt.trace_plain(scene, *rays,
                                                       any_hit=True), 1)}
+    # its bound, from the plain version's census of the walk these rays need
+    _, work = tt.trace_plain(scene, *rays, any_hit=True, census=True)
+    work = [int(v) for v in work.sum(dim=0)]
+    out.update(bound(n, table_bytes(scene, tt.wide_tables(8)), work[2],
+                     work[3], out["ms"]))
+    print(f"  any-hit launch of chunk 0: census {work[0]} inner and {work[1]} "
+          f"leaf visits, {work[2]} box and {work[3]} triangle tests; bound "
+          f"{out['bound_ms']:.5f} ms ({out['bound_by']}), "
+          f"{out['roofline_share']:.4f} of it reached", flush=True)
     print(f"  any-hit launch of chunk 0: rays {n} live {live:.4f} hits "
           f"{out['hits']}, bit-equal to the plain version and to "
           f"{n // CHUNK} launches of {CHUNK}; K1 {out['ms']:.4f} ms "
@@ -1530,6 +1573,314 @@ def fog_cli():
     return seconds
 
 
+def kernel_name(wide):
+    return {8: "trace_bvh8", 4: "trace_bvh4", 1: "trace_bvh2"}[wide]
+
+
+def grad_pass(scene, meta, chunk=CHUNK):
+    """Phase 21: mean(L * GRAD_WEIGHTS) over one sample of every pixel of
+    meta's film (the camera a pinhole, as goblin_tpu's train step takes it)
+    and its gradients with respect to the light colours, tex_const and
+    tri_rows, chunk by chunk: each chunk's backward runs before the next
+    chunk's forward and the gradients add up. Returns (loss, {leaf: numpy
+    gradient, tri_rows' as its first 9 columns}, {"forward_launches",
+    "backward_launches", "peak_bytes": per chunk; "seconds"})."""
+    import torch
+
+    from goblin_tpu_torch.integrators import common
+    from goblin_tpu_torch.ops import trace as tt
+    from goblin_tpu_torch.render import make_li
+    from goblin_tpu_torch.scene import bake
+
+    sc = bake.set_trainable_params(scene, bake.trainable_params(scene))
+    leaves = {"lights.color": sc["lights"]["color"],
+              "tex_const": sc["tex_const"], "tri_soup": sc["tri_rows"]}
+    for x in leaves.values():
+        x.requires_grad_()
+    li = make_li(meta)
+    spec = meta.camera.film
+    dev = scene["tri_rows"].device
+    cuda = dev.type == "cuda"
+    seed = int(meta.settings.get("seed", 0))
+    ids = torch.arange(spec.x_res * spec.y_res, dtype=torch.int32, device=dev)
+    w = torch.tensor(GRAD_WEIGHTS, device=dev)
+    stats = {"forward_launches": [], "backward_launches": [],
+             "peak_bytes": []}
+    loss = torch.zeros((), device=dev)
+    if cuda:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c0 in range(0, ids.numel(), chunk):
+        pix = ids[c0:c0 + chunk]
+        if cuda:
+            torch.cuda.reset_peak_memory_stats()
+        n0 = sum(tt.launches.values())
+        x, y = common.pixel_samples(seed, pix, spec.x_res, 0, 1)
+        L = li(sc, meta, meta.camera.generate_ray(x, y), pix, 0, seed)
+        part = (L * w).sum() / (3 * ids.numel())
+        n1 = sum(tt.launches.values())
+        part.backward()
+        stats["forward_launches"].append(n1 - n0)
+        stats["backward_launches"].append(sum(tt.launches.values()) - n1)
+        if cuda:
+            stats["peak_bytes"].append(torch.cuda.max_memory_allocated())
+        loss = loss + part.detach()
+    if cuda:
+        torch.cuda.synchronize()
+    stats["seconds"] = time.perf_counter() - t0
+    grads = {}
+    for name, x in leaves.items():
+        g = torch.zeros_like(x) if x.grad is None else x.grad
+        grads[name] = (g[:, :9] if name == "tri_soup" else g).cpu().numpy()
+    return float(loss), grads, stats
+
+
+def forward_loss(scene, meta, chunk=CHUNK):
+    """grad_pass's loss without autograd -> (loss, seconds)."""
+    import torch
+
+    from goblin_tpu_torch.integrators import common
+    from goblin_tpu_torch.render import make_li
+
+    li = make_li(meta)
+    spec = meta.camera.film
+    dev = scene["tri_rows"].device
+    seed = int(meta.settings.get("seed", 0))
+    ids = torch.arange(spec.x_res * spec.y_res, dtype=torch.int32, device=dev)
+    w = torch.tensor(GRAD_WEIGHTS, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        total = torch.zeros((), device=dev)
+        for c0 in range(0, ids.numel(), chunk):
+            pix = ids[c0:c0 + chunk]
+            x, y = common.pixel_samples(seed, pix, spec.x_res, 0, 1)
+            L = li(scene, meta, meta.camera.generate_ray(x, y), pix, 0, seed)
+            total = total + (L * w).sum() / (3 * ids.numel())
+        loss = float(total)
+    return loss, time.perf_counter() - t0
+
+
+def grads_agree(got, ref, what):
+    """The gradient bar: light colour and tex_const within 1e-4 rel,
+    tri_rows' columns with >= 99% of entries within 1e-6 + 1e-3 rel."""
+    import numpy as np
+
+    for name in ref:
+        g, r = got[name], ref[name]
+        check(np.isfinite(g).all(), f"{what}: {name} has non-finite entries")
+        if name == "tri_soup":
+            close = float((np.abs(g - r) <= 1e-6 + 1e-3 * np.abs(r)).mean())
+            worst = f"{close:.6f} of entries within 1e-6 + 1e-3 rel"
+            ok = close >= 0.99
+        else:
+            rel = float(np.abs(g - r).max() / max(np.abs(r).max(), 1e-30))
+            worst = f"largest difference {rel:.2e} of the largest entry"
+            ok = np.allclose(g, r, rtol=1e-4, atol=1e-4 * np.abs(r).max())
+        print(f"    {what}, {name}: {worst}", flush=True)
+        check(ok, f"{what}: {name} gradients disagree ({worst})")
+
+
+def gradient_path():
+    """Phase 21: bunny.json's gradient pass at 512 x 384, depth 5, 1 spp, in
+    chunks of CHUNK, at trace widths 8, 4 and 1: finite gradients that
+    agree between widths, the forward's exact launches (8 a chunk) and none
+    in the backward; the light colour's gradient against a central finite
+    difference of the loss at full size (the loss is linear in a light's
+    colour: the light-pick table is baked from luminance on the host); at
+    48 x 36 the card's gradients against the CPU's. Returns ({width:
+    launches}, {width: numbers})."""
+    import numpy as np
+
+    from goblin_tpu_torch.ops import trace as tt
+    from goblin_tpu_torch.scene import bake
+    from goblin_tpu_torch.scene.loader import load_scene
+
+    counts, numbers, grads = {}, {}, {}
+    for wide in GRAD_WIDTHS:
+        scene, meta = load_scene(BUNNY, GRAD_SETTINGS, device="cuda",
+                                 trace_wide=wide)
+        check(meta.all_delta_lights and meta.n_lights == 1,
+              "bunny.json's light changed")
+        spec = meta.camera.film
+        n_chunks = -(-spec.x_res * spec.y_res // CHUNK)
+        fwd_loss, fwd_s = forward_loss(scene, meta)
+        tt.reset_launches()
+        loss, g, st = grad_pass(scene, meta)
+        counts[wide] = dict(tt.launches)
+        want = 8 * n_chunks
+        peak_gb = [b / 2 ** 30 for b in st["peak_bytes"]]
+        print(f"  width {wide}: {spec.x_res}x{spec.y_res} depth 5, 1 spp, "
+              f"{n_chunks} chunks of {CHUNK}: forward {fwd_s:.4f} s, forward "
+              f"+ backward {st['seconds']:.4f} s (backward : forward "
+              f"{(st['seconds'] - fwd_s) / fwd_s:.2f}); peak memory a chunk "
+              f"{' '.join(f'{v:.2f}' for v in peak_gb)} GiB; launches a "
+              f"chunk forward {st['forward_launches']} backward "
+              f"{st['backward_launches']}; loss {loss:.8f} (no-grad "
+              f"{fwd_loss:.8f})", flush=True)
+        check(counts[wide] == no_launches(**{kernel_name(wide): want}),
+              f"width {wide}: gradient pass launches {counts[wide]}, expected "
+              f"{want} of {kernel_name(wide)} and no other")
+        check(st["forward_launches"] == [8] * n_chunks
+              and st["backward_launches"] == [0] * n_chunks,
+              f"width {wide}: launches a chunk {st}")
+        check(abs(loss - fwd_loss) <= 1e-6 * abs(fwd_loss),
+              f"width {wide}: the gradient pass's loss {loss} is not the "
+              f"forward's {fwd_loss}")
+        for name, v in g.items():
+            check(np.isfinite(v).all() and np.abs(v).max() > 0,
+                  f"width {wide}: {name} gradient not finite or all zero")
+        grads[wide] = g
+        numbers[wide] = {"forward_s": fwd_s, "forward_backward_s":
+                         st["seconds"], "peak_gib_per_chunk": peak_gb}
+        if wide == 8:
+            color = bake.trainable_params(scene)["lights.color"]
+            fd = []
+            for j in range(3):
+                h = FD_STEP * float(color[0, j])
+                losses = []
+                for sgn in (1.0, -1.0):
+                    c = color.copy()
+                    c[0, j] += sgn * h
+                    losses.append(forward_loss(bake.set_trainable_params(
+                        scene, {"lights.color": c}), meta)[0])
+                fd.append((losses[0] - losses[1]) / (2 * h))
+            ad = g["lights.color"][0]
+            rel = np.abs(ad - fd) / np.abs(fd)
+            print(f"    light colour: AD {ad.tolist()} central difference "
+                  f"{fd} (step {FD_STEP} of the value; rel diff "
+                  f"{rel.max():.2e})", flush=True)
+            check(rel.max() <= FD_RTOL, "light-colour gradient against the "
+                                        "finite difference")
+        del scene
+    for wide in GRAD_WIDTHS[1:]:
+        grads_agree(grads[wide], grads[8], f"width {wide} vs width 8")
+    small = {}
+    for device in ("cpu", "cuda"):
+        scene, meta = load_scene(BUNNY, GRAD_SETTINGS, device=device)
+        small_film(meta)
+        small[device] = grad_pass(scene, meta)[1]
+    grads_agree(small["cuda"], small["cpu"], "48x36 card vs CPU")
+    return counts, numbers
+
+
+def train_path():
+    """Phase 22: the gallery scene at 512 x 384, depth 5: TRAIN_STEPS steps
+    of plain SGD on (light colours, tex_atlas) through make_train_step, the
+    frame in chunks of CHUNK pixel ids. Each step's eta moves the loss by
+    about TRAIN_MOVE; the move it made must match its first-order
+    prediction -eta |g|^2 within TRAIN_RTOL. Returns (launches, numbers)."""
+    import torch
+
+    from goblin_tpu_torch.ops import trace as tt
+    from goblin_tpu_torch.parallel.mesh import make_train_step
+    from goblin_tpu_torch.render import make_li
+    from goblin_tpu_torch.scene.loader import load_scene
+
+    scene, meta = load_scene(GALLERY, GRAD_SETTINGS, device="cuda")
+    check_gallery(meta)
+    step = make_train_step(scene, meta, make_li(meta))
+    spec = meta.camera.film
+    ids = torch.arange(spec.x_res * spec.y_res, dtype=torch.int32,
+                       device="cuda")
+    n_chunks = -(-ids.numel() // CHUNK)
+    per_chunk = studio_launches_per_chunk(meta.settings["max_ray_depth"])
+
+    def full_step(params):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, peaks = 0.0, [0.0, 0.0], []
+        for c0 in range(0, ids.numel(), CHUNK):
+            pix = ids[c0:c0 + CHUNK]
+            torch.cuda.reset_peak_memory_stats()
+            c_loss, c_grads = step(params, pix, 0)
+            peaks.append(torch.cuda.max_memory_allocated() / 2 ** 30)
+            share = pix.numel() / ids.numel()
+            loss = loss + share * c_loss
+            grads = [g + share * c for g, c in zip(grads, c_grads)]
+        loss = float(loss)
+        torch.cuda.synchronize()
+        return loss, grads, time.perf_counter() - t0, peaks
+
+    params = (scene["lights"]["color"].clone(), scene["tex_atlas"].clone())
+    tt.reset_launches()
+    loss, grads, secs, peaks = full_step(params)
+    seconds, moves = [secs], []
+    for k in range(TRAIN_STEPS):
+        for name, g in zip(("light colour", "tex_atlas"), grads):
+            n_bad, n_set = int((~torch.isfinite(g)).sum()), int((g != 0).sum())
+            check(n_bad == 0 and n_set > 0,
+                  f"step {k + 1}: {name} gradient has {n_bad} non-finite "
+                  f"and {n_set} nonzero entries")
+        g2 = float(sum((g * g).sum() for g in grads))
+        eta = TRAIN_MOVE * loss / g2
+        params = tuple(p - eta * g for p, g in zip(params, grads))
+        new_loss, grads, secs, step_peaks = full_step(params)
+        seconds.append(secs)
+        peaks = [max(a, b) for a, b in zip(peaks, step_peaks)]
+        predicted, moved = -eta * g2, new_loss - loss
+        rel = abs(moved - predicted) / abs(predicted)
+        moves.append({"loss": loss, "eta": eta, "predicted": predicted,
+                      "moved": moved, "rel": rel})
+        print(f"  step {k + 1}: loss {loss:.8f} -> {new_loss:.8f}, eta "
+              f"{eta:.4e}, |g|^2 {g2:.4e}: moved {moved:.6e}, predicted "
+              f"{predicted:.6e} (rel diff {rel:.2e}); atlas entries with a "
+              f"gradient {int((grads[1] != 0).sum())} of "
+              f"{grads[1].numel()}", flush=True)
+        check(rel <= TRAIN_RTOL, f"step {k + 1}: the loss moved {moved}, its "
+                                 f"first-order prediction {predicted}")
+        loss = new_loss
+    launches = dict(tt.launches)
+    want = per_chunk * n_chunks * (TRAIN_STEPS + 1)
+    print(f"  {spec.x_res}x{spec.y_res} depth 5, {n_chunks} chunks of {CHUNK} "
+          f"pixel ids: seconds a step (forward + backward of the frame) "
+          f"{' '.join(f'{v:.4f}' for v in seconds)}; peak memory a chunk "
+          f"{' '.join(f'{v:.2f}' for v in peaks)} GiB; launches {launches} "
+          f"(expected {want}: {per_chunk} a chunk, {TRAIN_STEPS + 1} "
+          "evaluations)", flush=True)
+    check(launches == no_launches(trace_bvh8=want),
+          f"train step launches {launches}, expected {want} of trace_bvh8")
+    return launches, {"seconds_per_step": seconds, "chunk": CHUNK,
+                      "peak_gib_per_chunk": peaks, "moves": moves}
+
+
+def edge_path():
+    """Phase 22: mesh_boundary_grad on the card over tests/test_edge_grad.py's
+    tetrahedron sweep, against the CPU's, within EDGE_RTOL."""
+    import numpy as np
+    import torch
+
+    from goblin_tpu_torch.integrators import edge_grad as eg
+
+    faces = np.int32([[0, 2, 1], [0, 1, 3], [1, 2, 3], [2, 0, 3]])
+    light = np.float32([[-1.0, 2.0, -1.0], [1.0, 2.0, -1.0],
+                        [1.0, 2.0, 1.0], [-1.0, 2.0, 1.0]])
+    adj = eg.build_edge_adjacency(faces)
+    worst = 0.0
+    for theta in EDGE_SWEEP:
+        verts = np.float32([[0.15, 1.0, 0.0], [0.55, 1.0, 0.25],
+                            [0.40, 1.0, -0.30], [0.35, 1.25, 0.0]])
+        verts[:, 0] += theta
+        vel = np.tile(np.float32([1.0, 0.0, 0.0]), (4, 1))
+        out = {}
+        for device in ("cpu", "cuda"):
+            out[device] = eg.mesh_boundary_grad(
+                torch.zeros(3, device=device), [0.0, 1.0, 0.0],
+                [0.8, 0.6, 0.4], light, [0.0, -1.0, 0.0], [5.0, 5.0, 5.0],
+                verts, faces, adj, vel, n_samples=128)
+        check(out["cuda"].device.type == "cuda", "edge gradient left the card")
+        gpu, cpu = out["cuda"].cpu().numpy(), out["cpu"].numpy()
+        rel = float(np.abs(gpu - cpu).max() / np.abs(cpu).max())
+        worst = max(worst, rel)
+        print(f"  edge gradient, theta {theta:+.2f}: card {gpu.tolist()} cpu "
+              f"{cpu.tolist()} (rel diff {rel:.2e})", flush=True)
+        check(np.isfinite(gpu).all() and np.abs(cpu).max() > 0,
+              f"theta {theta}: edge gradient not finite or zero")
+        check(rel <= EDGE_RTOL, f"theta {theta}: card and CPU edge gradients "
+                                "disagree")
+    return worst
+
+
 def run():
     import torch
 
@@ -1656,6 +2007,15 @@ def run():
     smoke_counts, smoke_s = medium_path(SMOKE, (8,), "heterogeneous")
     reference_check(PT_CHECK, SMOKE)
 
+    print("[21] bunny.json gradients (light colour, tex_const, tri_rows) at "
+          "widths 8, 4 and 1:", flush=True)
+    grad_counts, grad_numbers = gradient_path()
+
+    print("[22] gallery scene, the train step; edge-sampled boundary "
+          "gradients on the card:", flush=True)
+    train_launches, train_numbers = train_path()
+    edge_rel = edge_path()
+
     print(f"  clocks.sm, power.draw, temperature: "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
     # every row's ms / plain_ms: the full-frame primary closest-hit launch
@@ -1694,14 +2054,18 @@ def run():
             "fog path_tracing": fog_counts[8],
             f"fog whitted depth {FOG_WHITTED_DEPTH}": fog_whitted_launches,
             "smoke path_tracing": smoke_counts[8],
+            "bunny gradient pass": grad_counts[8],
+            "gallery train step": train_launches,
         },
-        "trace_bvh2": {"bunny sppm": sppm_counts[1]},
+        "trace_bvh2": {"bunny sppm": sppm_counts[1],
+                       "bunny gradient pass": grad_counts[1]},
         "trace_bvh4": {
             "studio path_tracing": studio_counts[4],
             "studio sppm": studio_sppm_launches,
             "gallery path_tracing": gallery_counts[4],
             "sky path_tracing": sky_counts[4],
             "fog path_tracing": fog_counts[4],
+            "bunny gradient pass": grad_counts[4],
         },
     }
     for r, width in ((row, 8), (k2_row, 1), (stats_row, 8)):
@@ -1739,7 +2103,10 @@ def run():
                       f"fog whitted depth {FOG_WHITTED_DEPTH} pass with the "
                       "load": fog_whitted_s,
                       "fog CLI 16 spp": fog_cli_s,
-                      "smoke path_tracing steady pass": smoke_s[8]}
+                      "smoke path_tracing steady pass": smoke_s[8],
+                      "bunny gradient pass by width": grad_numbers,
+                      "gallery train step": train_numbers}
+    row["edge_gradient_card_vs_cpu_rel"] = edge_rel
     # no render path runs the stats instance: its row counts phase 7's census
     stats_row["launches"] = stats_launches
     stats_row["launches_counted_in"] = "phase 7's visit census"

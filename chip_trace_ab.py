@@ -66,7 +66,7 @@ def run(old_dir):
     sides = {}
     for name, scene, names, new, plain in (
             ("trace_bvh8", scene8, tt._BVH8_TABLES, tt.trace, tt.trace_plain),
-            ("trace_bvh2", scene1, tt._BIN_TABLES, tt.trace_bin,
+            ("trace_bvh2", scene1, tt.BIN_TABLES, tt.trace_bin,
              tt.trace_bin_plain)):
         entry = old_entry(name, os.path.join(old_dir, f"{name}.cu"), out_dir)
         tables = [scene[k] for k in names]

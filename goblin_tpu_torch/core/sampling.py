@@ -12,7 +12,7 @@ import math
 
 import torch
 
-from .vecmath import INV_PI, INV_TWO_PI, TWO_PI
+from .vecmath import INV_PI, INV_TWO_PI, TWO_PI, sqrt0
 
 
 def uniform_sample_triangle(u1, u2):
@@ -24,7 +24,7 @@ def uniform_sample_triangle(u1, u2):
 def uniform_sample_cone(u1, u2, cos_theta_max):
     """Uniform direction in a z-up cone with half-angle acos(cos_theta_max)."""
     cos_t = 1.0 - u1 + u1 * cos_theta_max
-    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    sin_t = sqrt0(1.0 - cos_t * cos_t)  # cos_t reaches 1 with a gradient
     phi = TWO_PI * u2
     return torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), cos_t],
                        dim=-1)

@@ -52,6 +52,14 @@ def normalize(a, eps=0.0):
     return a / torch.sqrt(sq)
 
 
+def sqrt0(x):
+    """sqrt(max(x, 0)) with a zero slope where x <= 0: the lanes a where
+    drops would otherwise send 0 * inf (sqrt's slope at 0) into the
+    gradient. Its values are sqrt(clamp(x, min=0))'s."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
+
+
 def coordinate_system(a1):
     """Two unit vectors completing an orthonormal frame with unit a1
     (reference coordinateAxises: branch on |x| > |y|, a3 = a1 x a2)."""
@@ -81,7 +89,7 @@ def quadratic(A, B, C):
     src/GoblinUtils.cpp:93-113) -> (has_roots, t1, t2) with t1 <= t2; where
     has_roots is False the roots are garbage and the caller masks them."""
     disc = B * B - 4.0 * A * C
-    root = torch.sqrt(torch.clamp(disc, min=0.0))
+    root = sqrt0(disc)
     q = torch.where(B < 0.0, -0.5 * (B - root), -0.5 * (B + root))
     t1 = q / A
     t2 = C / torch.where(q == 0.0, 1e-30, q)

@@ -51,8 +51,7 @@ def _refract_in(wo, n, eta_mat):
     reference specularRefract, src/GoblinMaterial.cpp:418-433)."""
     eta = 1.0 / eta_mat
     cosi = vm.absdot(n, wo)
-    cost = torch.sqrt(torch.clamp(1.0 - eta * eta * (1.0 - cosi * cosi),
-                                  min=0.0))
+    cost = vm.sqrt0(1.0 - eta * eta * (1.0 - cosi * cosi))
     return vm.normalize(n * (eta * cosi - cost)[..., None]
                         - eta[..., None] * wo, eps=1e-30)
 
@@ -66,9 +65,12 @@ def subsurface_L(scene, meta, frag, active, pixel_ids, s_idx, seed, bounce=0):
     rows = scene["mat_rows"][mid]
     is_ss = (rows[:, COL_TYPE] == MAT_SUBSURFACE) & active & frag["hit"]
     p, ns, wo = frag["p"], frag["ns"], frag["wo"]
-    eta = rows[:, COL_ETA]
-    sigma_a = scene["mat_sigma_a"][mid]
-    sigma_sp = scene["mat_sigma_sp"][mid]
+    # lanes of other materials (eta and sigmas 0) read 1s instead: their
+    # values are dropped at the end, but a 0 / 0 there would put a NaN into
+    # the gradient of every lane
+    eta = torch.where(is_ss, rows[:, COL_ETA], 1.0)
+    sigma_a = torch.where(is_ss[:, None], scene["mat_sigma_a"][mid], 1.0)
+    sigma_sp = torch.where(is_ss[:, None], scene["mat_sigma_sp"][mid], 1.0)
     g = scene["mat_ss_g"][mid]
     A = scene["mat_ss_A"][mid]
     # getScatter = sigma_s' / (1 - g); sigma_t = scatter + sigma_a
@@ -136,8 +138,7 @@ def subsurface_L(scene, meta, frag, active, pixel_ids, s_idx, seed, bounce=0):
         # dipole diffusion
         dxy = gaussian_sample_2d(u[4], u[5], sigma_tr, r_max)
         dx, dy = dxy[..., 0], dxy[..., 1]
-        half = torch.sqrt(torch.clamp(r_max * r_max - (dx * dx + dy * dy),
-                                      min=0.0))
+        half = vm.sqrt0(r_max * r_max - (dx * dx + dy * dy))
         # the axis, picked 2 : 1 : 1 (N : U : V)
         pick_n = u[6] <= 0.5
         pick_u = (u[6] > 0.5) & (u[6] <= 0.75)

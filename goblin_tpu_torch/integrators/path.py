@@ -67,8 +67,14 @@ def _area_light_Le(scene, frag, wo):
     return torch.where(((lid >= 0) & facing)[..., None], Le, 0.0)
 
 
-def make_li(meta, max_depth=None):
-    """Build li(scene, meta, ray, pixel_ids, s_idx, seed) -> (R, 3)."""
+def make_li(meta, max_depth=None, with_stats=False):
+    """Build li(scene, meta, ray, pixel_ids, s_idx, seed) -> (R, 3).
+
+    with_stats=True makes li return (L, (considered, traced)): int32 tensors
+    of max_depth - 1 per-bounce counts on L's device, the shadow rays
+    considered and the continuation rays traced (0 for a last bounce whose
+    trace is skipped), goblin_tpu's census for bench.py. Off, li reads and
+    launches nothing more."""
     if max_depth is None:
         max_depth = int(meta.settings.get("max_ray_depth", 5))
     # integrator dims are stratified over the declared spp
@@ -85,6 +91,10 @@ def make_li(meta, max_depth=None):
                         _area_light_Le(scene, frag, frag["wo"]),
                         _env_le(scene, meta, ray["d"]))
         if meta.n_lights == 0:
+            if with_stats:
+                z = torch.zeros(max_depth - 1, dtype=torch.int32,
+                                device=L.device)
+                return L, (z, z)
             return L
         if meta.has_bssrdf:
             # subsurface transport, once at the camera hit (reference
@@ -213,10 +223,14 @@ def make_li(meta, max_depth=None):
                                frag2[k], v)
                 for k, v in frag.items()
             }
+            if with_stats:
+                traced = cont_ok.sum() if trace_cont else consider.sum() * 0
+                census.append(torch.stack([consider.sum(), traced]))
             return L, throughput, new_frag, active
 
         state = (L, torch.ones((R, 3), dtype=torch.float32, device=L.device),
                  frag, frag["hit"])
+        census = []  # with_stats: (considered, traced) a bounce
         skip_last = meta.all_delta_lights and max_depth >= 2
         n_traced = max_depth - 2 if skip_last else max_depth - 1
         for b in range(n_traced):
@@ -224,7 +238,13 @@ def make_li(meta, max_depth=None):
         if skip_last:
             state = bounce(state, max_depth - 2, trace_cont=False)
         # the medium over the camera ray's segment, up to the camera hit
-        return apply_volume(scene, meta, ray, frag["t"], state[0], pixel_ids,
-                            s_idx, seed)
+        L = apply_volume(scene, meta, ray, frag["t"], state[0], pixel_ids,
+                         s_idx, seed)
+        if with_stats:
+            counts = (torch.stack(census, dim=1) if census else
+                      torch.zeros((2, 0), dtype=torch.int64, device=L.device))
+            considered, traced = counts.to(torch.int32)
+            return L, (considered, traced)
+        return L
 
     return li

@@ -95,8 +95,11 @@ def phase_hg(wi, wo, g: float):
 
 @functools.lru_cache(maxsize=64)
 def _const(values: tuple, device, dtype=torch.float32):
-    """A small constant tensor, made once a device (no copy a call)."""
-    return torch.tensor(values, dtype=dtype, device=device)
+    """A small constant tensor, made once a device (no copy a call), and
+    outside inference mode, so that a gradient pass after a render may
+    save it for backward."""
+    with torch.inference_mode(False):
+        return torch.tensor(values, dtype=dtype, device=device)
 
 
 def _vec(v, like):

@@ -205,8 +205,7 @@ def _sphere_cos_max(sr, sd2):
     """Cosine of the cone a sphere of radius sr subtends at squared distance
     sd2, kept below 1 (a zero-radius row would give a cone pdf of 1 / 0)."""
     cm2 = 1.0 - torch.clamp(sr * sr / sd2, 0.0, 1.0)
-    cos_max = torch.where(cm2 > 1e-12, torch.sqrt(torch.clamp(cm2, min=0.0)),
-                          0.0)
+    cos_max = torch.where(cm2 > 1e-12, vm.sqrt0(cm2), 0.0)
     return torch.clamp(cos_max, max=1.0 - 1e-7)
 
 

@@ -16,7 +16,11 @@ ray at its first accepted triangle, and then only ``hit`` is defined.
 
 On a CUDA tensor a wrapper launches its kernel (built with nvcc at first
 use, bound with ctypes) and never falls back; on a CPU tensor it runs the
-plain version, the same traversal in vectorised lockstep. Both kernels run
+plain version, the same traversal in vectorised lockstep. The walk has no
+derivative and no backward kernel, as goblin_tpu's has none: the wrappers
+and the plain versions run under torch.no_grad(), so they accept tensors
+that require grad, read them as values and return tensors without a
+grad_fn. Both kernels run
 persistent blocks that draw rays from a counter (the wide kernel a ray at a
 time for each group of 8 or 4 lanes, the binary kernel 32 rays a warp); the
 binary kernel also stages the first ``staged_nodes`` nodes of its table in
@@ -260,7 +264,7 @@ _BVH8_TABLES = {"bvh8_bounds": torch.float32, "bvh8_child": torch.int32,
                 "tri_rows": torch.float32}
 _BVH4_TABLES = {"bvh4_bounds": torch.float32, "bvh4_child": torch.int32,
                 "tri_rows": torch.float32}
-_BIN_TABLES = {"bin_bounds": torch.float32, "bin_meta": torch.int32,
+BIN_TABLES = {"bin_bounds": torch.float32, "bin_meta": torch.int32,
                "tri_rows": torch.float32}
 
 
@@ -271,6 +275,7 @@ def wide_tables(width: int) -> dict:
     return _BVH8_TABLES if width == 8 else _BVH4_TABLES
 
 
+@torch.no_grad()
 def trace(scene, o, d, mint, maxt, any_hit: bool = False,
           stats: bool = False, width: int = WIDTH):
     """Trace rays (o, d (R, 3); mint, maxt (R,)) through the scene's
@@ -286,6 +291,7 @@ def trace(scene, o, d, mint, maxt, any_hit: bool = False,
     raise ValueError(f"trace: no traversal for device {o.device}")
 
 
+@torch.no_grad()
 def trace_bin(scene, o, d, mint, maxt, any_hit: bool = False) -> TraceResult:
     """Trace rays through the scene's binary tables (bin_tables): the CUDA
     kernel for CUDA tensors, trace_bin_plain for CPU ones."""
@@ -492,10 +498,10 @@ def _trace_cuda(scene, o, d, mint, maxt, any_hit, stats, width):
 
 
 def _trace_bin_cuda(scene, o, d, mint, maxt, any_hit):
-    _check_inputs(scene, _BIN_TABLES, o, d, mint, maxt)
+    _check_inputs(scene, BIN_TABLES, o, d, mint, maxt)
     n_staged = bin_staged_nodes(scene["bin_meta"].shape[0], o.device)
     return _launch(_kernel_lib("trace_bvh2").goblin_trace_bvh2, "trace_bvh2",
-                   [scene[name] for name in _BIN_TABLES], o, d, mint, maxt,
+                   [scene[name] for name in BIN_TABLES], o, d, mint, maxt,
                    any_hit, staged=(n_staged,))
 
 
@@ -584,6 +590,7 @@ def _slab(lo, hi, o, inv, mint, t_best):
     return torch.maximum(tn, mint), torch.minimum(tf, t_best)
 
 
+@torch.no_grad()
 def trace_plain(scene, o, d, mint, maxt, any_hit: bool = False,
                 stats: bool = False, census: bool = False,
                 width: int = WIDTH):
@@ -668,6 +675,7 @@ def trace_plain(scene, o, d, mint, maxt, any_hit: bool = False,
     return best.result()
 
 
+@torch.no_grad()
 def trace_bin_plain(scene, o, d, mint, maxt, any_hit: bool = False,
                     census: bool = False):
     """The binary kernel's traversal in plain PyTorch, vectorised over rays.
@@ -682,7 +690,7 @@ def trace_bin_plain(scene, o, d, mint, maxt, any_hit: bool = False,
     counts (R, 3) of the work the walk needed: inner visits (two box tests
     each), leaf visits and triangles tested.
     """
-    _check_inputs(scene, _BIN_TABLES, o, d, mint, maxt)
+    _check_inputs(scene, BIN_TABLES, o, d, mint, maxt)
     bounds, meta, tris = (scene["bin_bounds"], scene["bin_meta"],
                           scene["tri_rows"])
     R = o.shape[0]

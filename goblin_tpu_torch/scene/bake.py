@@ -455,3 +455,54 @@ class SceneBuilder:
                           tuple(float(v) for v in bmax)),
         )
         return scene, meta
+
+
+# the scene leaves a gradient may flow to, named as goblin_tpu's pytree
+# leaves: "lights.color" is scene["lights"]["color"]; "tri_soup" (T, 9) is
+# v0 | e1 | e2, the first 9 of the port's 12 tri_rows columns
+TRAINABLE = ("lights.color", "tex_const", "tex_atlas", "tri_soup")
+
+
+def trainable_params(scene) -> dict:
+    """The scene's trainable leaves as numpy arrays (copies), keyed as
+    TRAINABLE."""
+    def host(x):
+        return x.detach().cpu().numpy().copy()
+
+    return {"lights.color": host(scene["lights"]["color"]),
+            "tex_const": host(scene["tex_const"]),
+            "tex_atlas": host(scene["tex_atlas"]),
+            "tri_soup": host(scene["tri_rows"][:, :9])}
+
+
+def set_trainable_params(scene, arrays) -> dict:
+    """A new scene dict with the leaves that arrays (keys of TRAINABLE,
+    numpy arrays or tensors of the leaves' shapes) name replaced by new
+    float32 tensors on the scene's device; tri_soup becomes tri_rows with
+    its columns 9-11 kept. The baked tables are not written, and the BVH is
+    not refitted: the tree stays that of the baked vertices, as goblin_tpu's
+    does."""
+    unknown = set(arrays) - set(TRAINABLE)
+    if unknown:
+        raise KeyError(f"not trainable: {sorted(unknown)}")
+    dev = scene["tri_rows"].device
+    out = dict(scene)
+
+    def new(name, old_shape):
+        a = torch.as_tensor(arrays[name], dtype=torch.float32, device=dev)
+        if tuple(a.shape) != tuple(old_shape):
+            raise ValueError(f"{name}: shape {tuple(a.shape)}, the scene's "
+                             f"is {tuple(old_shape)}")
+        return a.clone()
+
+    if "lights.color" in arrays:
+        out["lights"] = dict(scene["lights"], color=new(
+            "lights.color", scene["lights"]["color"].shape))
+    for name in ("tex_const", "tex_atlas"):
+        if name in arrays:
+            out[name] = new(name, scene[name].shape)
+    if "tri_soup" in arrays:
+        rows = scene["tri_rows"]
+        out["tri_rows"] = torch.cat(
+            [new("tri_soup", (rows.shape[0], 9)), rows[:, 9:]], dim=1)
+    return out

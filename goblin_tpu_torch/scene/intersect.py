@@ -20,7 +20,7 @@ import torch
 from ..core import vecmath as vm
 from ..geometry.intersect import BIG_T, intersect_sphere
 from ..integrators.materials import COL_TYPE, _pick, gather_material
-from ..ops.trace import TraceResult, trace, trace_bin
+from ..ops.trace import BIN_TABLES, TraceResult, trace, trace_bin, wide_tables
 from ..shading.bsdf import MAT_MASK
 
 HIT_EPS_SCALE = 1e-3
@@ -30,14 +30,23 @@ def trace_rays(scene, meta, o, d, mint, maxt, any_hit=False) -> TraceResult:
     """Trace a wavefront through the scene's BVH at meta.trace_wide: 8 and
     4 walk the collapsed tree of that width (ops.trace.trace), 1 the binary
     tree (ops.trace.trace_bin); each the CUDA kernel on the card and its
-    plain version on the CPU."""
-    rays = (o.contiguous(), d.contiguous(), mint.contiguous(),
-            maxt.contiguous())
+    plain version on the CPU.
+
+    The walk's pick is discrete and has no derivative: the traversal gets
+    detached rays and detached scene tables, as goblin_tpu's stop_gradient
+    gives its kernel, and a gradient reaches the vertices only through the
+    recompute in intersect."""
+    rays = tuple(x.detach().contiguous() for x in (o, d, mint, maxt))
     if meta.trace_wide in (4, 8):
-        return trace(scene, *rays, any_hit=any_hit, width=meta.trace_wide)
+        tables = wide_tables(meta.trace_wide)
+    elif meta.trace_wide == 1:
+        tables = BIN_TABLES
+    else:
+        raise ValueError(f"trace width {meta.trace_wide!r} has no kernel")
+    scene_d = {name: scene[name].detach() for name in tables}
     if meta.trace_wide == 1:
-        return trace_bin(scene, *rays, any_hit=any_hit)
-    raise ValueError(f"trace width {meta.trace_wide!r} has no kernel")
+        return trace_bin(scene_d, *rays, any_hit=any_hit)
+    return trace(scene_d, *rays, any_hit=any_hit, width=meta.trace_wide)
 
 
 def _sphere_pass(scene, o, d, mint, cur_t):
@@ -327,7 +336,9 @@ def _perturb(scene, meta, frag):
 def occluded(scene, meta, o, d, mint, maxt):
     """Any-hit shadow query over triangles, spheres and disks (every disk,
     the camera lens included, as in goblin_tpu): True where the segment
-    [mint, maxt] is blocked."""
+    [mint, maxt] is blocked. Visibility is discrete: the rays are detached
+    before every pass, the sphere and disk passes included."""
+    o, d, mint, maxt = (x.detach() for x in (o, d, mint, maxt))
     occ = trace_rays(scene, meta, o, d, mint, maxt, any_hit=True).hit
     if meta.n_spheres > 0:
         occ = occ | (_sphere_pass(scene, o, d, mint, maxt)[0] >= 0)

@@ -59,7 +59,8 @@ _LOBES = (
 
 @functools.cache
 def _lobe_table(device) -> torch.Tensor:
-    return torch.tensor(_LOBES, dtype=torch.int32, device=device)
+    with torch.inference_mode(False):  # cached past the render that made it
+        return torch.tensor(_LOBES, dtype=torch.int32, device=device)
 
 
 def lobe_of(mtype):
@@ -84,8 +85,8 @@ def fresnel_dielectric(cosi, etai, etat):
     """rParl/rPerp dielectric Fresnel (src/GoblinMaterial.cpp:389-410);
     etai/etat already oriented for the side the ray arrives from."""
     cosi = torch.clamp(cosi, -1.0, 1.0)
-    sint = (etai / etat) * torch.sqrt(torch.clamp(1.0 - cosi * cosi, min=0.0))
-    cost = torch.sqrt(torch.clamp(1.0 - sint * sint, min=0.0))
+    sint = (etai / etat) * vm.sqrt0(1.0 - cosi * cosi)
+    cost = vm.sqrt0(1.0 - sint * sint)
     ci = cosi.abs()
     r_parl = (etat * ci - etai * cost) / torch.clamp(etat * ci + etai * cost,
                                                      min=1e-12)
@@ -228,7 +229,7 @@ def bsdf_sample(mat, ns, dpdu, wo, u1, u2, u_comp, type_mask,
     if _need(mat, MAT_BLINN):
         e = mat["f0"]
         cos_th = torch.pow(torch.clamp(u1, min=1e-12), 1.0 / (e + 1.0))
-        sin_th = torch.sqrt(torch.clamp(1.0 - cos_th * cos_th, min=0.0))
+        sin_th = vm.sqrt0(1.0 - cos_th * cos_th)
         wh_loc = torch.stack([sin_th * torch.cos(phi), sin_th * torch.sin(phi),
                               cos_th], dim=-1)
         wh = to_world(t, b, ns, wh_loc * flip)
@@ -249,7 +250,7 @@ def bsdf_sample(mat, ns, dpdu, wo, u1, u2, u_comp, type_mask,
         eta_ratio = ei / et
         sin2t = eta_ratio * eta_ratio * torch.clamp(1.0 - cosi * cosi, min=0.0)
         total_internal = sin2t >= 1.0
-        cost = torch.sqrt(torch.clamp(1.0 - sin2t, min=0.0))
+        cost = vm.sqrt0(1.0 - sin2t)
         wi_refract = vm.normalize(
             n_or * (eta_ratio * cosi - cost)[..., None]
             - eta_ratio[..., None] * wo,

@@ -250,10 +250,13 @@ class TextureSystem:
         return order
 
     def _on_device(self, key, device, make):
-        """A small host table as a tensor on device, made once."""
+        """A small host table as a tensor on device, made once. It is made
+        outside inference mode: it outlives the render that first asks for
+        it, and a gradient pass after that render saves it for backward."""
         k = (key, str(device))
         if k not in self._device_tables:
-            self._device_tables[k] = torch.as_tensor(make(), device=device)
+            with torch.inference_mode(False):
+                self._device_tables[k] = torch.as_tensor(make(), device=device)
         return self._device_tables[k]
 
     # -- evaluation --------------------------------------------------------

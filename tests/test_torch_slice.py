@@ -68,6 +68,41 @@ def test_bunny_slice_matches_goblin_tpu(tmp_path, monkeypatch):
     assert got.mean() > 0
 
 
+def test_census_matches_goblin_tpu(tmp_path, monkeypatch):
+    """make_li(meta, with_stats=True) on bunny.json at 16 x 12, depth 5:
+    the shadow rays considered and the continuation rays traced of every
+    bounce equal goblin_tpu's (0 traced for the peeled last bounce: the
+    spot light is a delta light), and L is bit for bit the L of make_li
+    without the census."""
+    import jax.numpy as jnp
+
+    from goblin_tpu_torch.integrators.path import make_li as t_path_li
+
+    path = _bunny_copy(tmp_path, 16, 12, 1, 5)
+    monkeypatch.setenv("GOBLIN_TRACE", "pallas")
+    js, jm = jloader.load_scene(path)
+    jm = dataclasses.replace(jm, trace_backend="jnp")
+    ts, tm = tloader.load_scene(path, device="cpu")
+    ids = np.arange(16 * 12, dtype=np.int32)
+
+    def rays(common, cam, ids, s):
+        x, y = common.pixel_samples(0, ids, 16, s, 1)
+        return cam.generate_ray(x, y)
+
+    _, (j_cons, j_cont) = j_make_li(jm, with_stats=True)(
+        js, jm, rays(jcommon, jm.camera, jnp.asarray(ids), jnp.int32(0)),
+        jnp.asarray(ids), jnp.int32(0), 0)
+    t_ids = torch.as_tensor(ids)
+    ray = rays(tcommon, tm.camera, t_ids, 0)
+    L, (cons, cont) = t_path_li(tm, with_stats=True)(ts, tm, ray, t_ids, 0, 0)
+    assert cons.dtype == cont.dtype == torch.int32
+    assert cons.tolist() == np.asarray(j_cons).tolist()
+    assert cont.tolist() == np.asarray(j_cont).tolist()
+    assert len(cons) == 4 and cont[-1] == 0 and cons[-1] > 0
+    assert 0 < int(cont[0]) <= 16 * 12
+    assert torch.equal(L, t_path_li(tm)(ts, tm, ray, t_ids, 0, 0))
+
+
 TWO_TRIANGLES = {
     "render_setting": {"sample_per_pixel": 1, "max_ray_depth": 3,
                        "render_method": "path_tracing"},
@@ -101,7 +136,8 @@ def test_port_imports_neither_jax_nor_goblin_tpu(tmp_path):
     then the studio scene (every feature of its slice) at width 4, the
     gallery scene (the texture chain) under whitted, the sky scene (the
     map) under bdpt and the smoke scene (a heterogeneous volume and
-    subsurface materials), and never imports jax or goblin_tpu."""
+    subsurface materials), takes a train step and an edge-sampled boundary
+    gradient, and never imports jax or goblin_tpu."""
     scene = _two_triangle_scene(tmp_path)
     script = textwrap.dedent(f"""
         import dataclasses, sys
@@ -149,6 +185,25 @@ def test_port_imports_neither_jax_nor_goblin_tpu(tmp_path):
         assert tuple(img.shape) == (6, 8, 3), img.shape
         assert bool(img.isfinite().all()) and float(img.mean()) > 0
         assert meta.has_bssrdf and meta.volume.kind == "heterogeneous"
+        import numpy as np, torch
+        from goblin_tpu_torch.integrators import edge_grad
+        from goblin_tpu_torch.parallel.mesh import make_train_step
+        scene, meta = load_scene({scene!r}, device="cpu")
+        step = make_train_step(scene, meta, make_li(meta))
+        loss, (g_light, g_atlas) = step(
+            (scene["lights"]["color"], scene["tex_atlas"]),
+            torch.arange(16, dtype=torch.int32), 0)
+        assert float(loss) > 0 and bool(g_light.isfinite().all())
+        assert g_atlas.shape == scene["tex_atlas"].shape
+        faces = np.int32([[0, 2, 1], [0, 1, 3], [1, 2, 3], [2, 0, 3]])
+        verts = np.float32([[0.15, 1, 0], [0.55, 1, 0.25], [0.4, 1, -0.3],
+                            [0.35, 1.25, 0]])
+        g = edge_grad.mesh_boundary_grad(
+            torch.zeros(3), [0, 1, 0], [0.8, 0.6, 0.4],
+            [[-1, 2, -1], [1, 2, -1], [1, 2, 1], [-1, 2, 1]], [0, -1, 0],
+            [5, 5, 5], verts, faces, edge_grad.build_edge_adjacency(faces),
+            np.tile(np.float32([1, 0, 0]), (4, 1)))
+        assert g.shape == (3,) and bool((g != 0).all())
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "goblin_tpu" or m.startswith("goblin_tpu.")]
         assert not bad, bad
