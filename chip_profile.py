@@ -3,7 +3,7 @@
 pass of goblin_tpu_torch's render of a scene.
 
     python3 chip_profile.py SCENE.json [render_method] [--wide 1|4|8]
-                            [--depth N] [--grad]
+                            [--depth N] [--grad | --regen]
 
 The scene renders through render_context with 4 passes (path tracing, ao,
 whitted) or 4 iterations (SPPM) at its own size, and at its own depth
@@ -24,6 +24,11 @@ colours, tex_const and tri_rows, chunk by chunk): after one unprofiled
 gradient pass, a forward pass without autograd and a gradient pass run
 under the profiler, and the backward's device kernels and time are the
 second's less the first's.
+
+With --regen it profiles path tracing by both drivers (4 spp): after one
+unprofiled render by each, a whole render by the chunked driver and one by
+the regenerative driver (pool 65,536) run under the profiler, then one of
+each without it; the numbers a pass are a render's over its 4 passes.
 """
 
 import argparse
@@ -49,6 +54,7 @@ def run(argv):
     ap.add_argument("--wide", type=int, default=8)
     ap.add_argument("--depth", type=int)
     ap.add_argument("--grad", action="store_true")
+    ap.add_argument("--regen", action="store_true")
     args = ap.parse_args(argv)
     cs.check(torch.cuda.is_available(), "CUDA is not available")
     sys.path.insert(0, cs.REPO)
@@ -60,6 +66,8 @@ def run(argv):
     tt.build_kernels()
     if args.grad:
         return profile_grad(args, smi)
+    if args.regen:
+        return profile_regen(args, smi)
     ovr = {"sample_per_pixel": PASSES}
     if args.render_method:
         ovr["render_method"] = args.render_method
@@ -193,6 +201,78 @@ def profile_grad(args, smi):
         "backward_device_events": bwd_n, "backward_device_s": bwd_s,
         "gradient_pass_s": unprofiled,
         "peak_bytes_per_chunk": st["peak_bytes"]}))
+
+
+def profile_regen(args, smi):
+    """--regen: a whole 4-spp path-tracing render by the chunked driver and
+    by the regenerative one, each under the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from goblin_tpu_torch.integrators import common, wavefront
+    from goblin_tpu_torch.ops import trace as tt
+    from goblin_tpu_torch.render import make_li
+    from goblin_tpu_torch.scene.loader import load_scene
+
+    ovr = {"render_method": "path_tracing", "sample_per_pixel": PASSES}
+    if args.depth is not None:
+        ovr["max_ray_depth"] = args.depth
+    scene, meta = load_scene(args.scene, ovr, device="cuda",
+                             trace_wide=args.wide)
+    cs.check(wavefront.supports(meta), "the scene has a BSSRDF: the "
+                                       "regenerative driver does not cover it")
+    drivers = {
+        "chunked": lambda: common.render(scene, meta, make_li(meta),
+                                         chunk_size=cs.CHUNK),
+        "regenerative": lambda: wavefront.render_wavefront(
+            scene, meta, pool=cs.CHUNK, with_stats=True)[1],
+    }
+    out = {}
+    for name, fn in drivers.items():
+        fn()  # warm-up
+    for name, fn in drivers.items():
+        tt.reset_launches()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        launches = dict(tt.launches)
+        by_name, reads, n, dev_s = device_events(prof)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        out[name] = {"profiled_pass_s": secs / PASSES,
+                     "unprofiled_pass_s": plain_s / PASSES,
+                     "device_events_per_pass": n / PASSES,
+                     "device_s_per_pass": dev_s / PASSES,
+                     "busy_share": dev_s / secs,
+                     "host_reads_per_pass": reads / PASSES,
+                     "trace_counters": launches}
+        if name == "regenerative":
+            out[name]["iterations"] = res["iterations"]
+            out[name]["useful_segments"] = res["useful_segments"]
+            out[name]["live_share"] = [v / res["pool"]
+                                       for v in res["live_lanes"]]
+        spec = meta.camera.film
+        print(f"{os.path.basename(args.scene)} {name} {spec.x_res}x"
+              f"{spec.y_res} {PASSES} spp depth "
+              f"{meta.settings['max_ray_depth']} width {args.wide}, a pass: "
+              f"{secs / PASSES:.4f} s under the profiler, {plain_s / PASSES:.4f}"
+              f" s without; {n / PASSES:.1f} device kernels and copies, "
+              f"{dev_s / PASSES * 1e3:.2f} ms device ({dev_s / secs:.4f} "
+              f"busy); {reads / PASSES:.2f} device-to-host reads; trace "
+              f"launches a render {launches}", flush=True)
+        for kname, (count, us) in sorted(by_name.items(),
+                                         key=lambda kv: -kv[1][1])[:TOP]:
+            print(f"  {us * 1e-3:9.3f} ms {count:7d} x {kname[:110]}")
+    print(json.dumps({"card": smi, "scene": os.path.basename(args.scene),
+                      "mode": "regen", "trace_wide": args.wide,
+                      "passes": PASSES, **out}))
 
 
 if __name__ == "__main__":

@@ -112,7 +112,27 @@ Phases, each printed on its own lines, and any failure exits non-zero:
      first-order prediction -eta |g|^2 (eta moving the loss by about 1%)
      within 5%, 21 launches a chunk; then mesh_boundary_grad on the card
      over tests/test_edge_grad.py's tetrahedron sweep against the CPU's
-     within 1e-5 rel.
+     within 1e-5 rel;
+ 23. the regenerative driver (pool 65,536) on bunny.json at 512 x 384, 4
+     spp, depth 5, at trace widths 8, 4 and 1, against the chunked driver
+     in turns on one loaded scene: 2 launches an iteration, the images
+     within the bar of each other, seconds a pass of both; through
+     render_context(regen=True) at each width, and one render under the
+     profiler: one device-to-host read an iteration; 48 x 36 card against
+     CPU; the studio, sky and fog-without-BSSRDF scenes (1 + 4 punch-through
+     launches an iteration, and the volume's 2 a sample), against the
+     chunked driver; the fog scene as shipped through
+     render_context(regen=True) takes the chunked driver (its BSSRDF), with
+     its launches; iterations, useful segments and each iteration's share
+     of live lanes;
+ 24. an NCCL process group joined as parallel/multihost.init_from_env
+     joins it, one rank a card, world min(2, cards): on one card the group
+     of world 1 in this process, on more two ranks in child processes (this
+     script with --sharded-rank, started by multihost.launch_local) whose
+     results must agree: render_sharded_dense and render_sharded of bunny
+     at 1 spp against common.render (8 launches a chunk of a rank's share),
+     make_sharded_train_step on the gallery scene against make_train_step
+     at the gradient bars (21 launches a chunk); every group is destroyed.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Each kernel's row carries its time (CUDA events over launches queued behind
 a spinning kernel, so the host's launch rate stays out of it), its plain
@@ -209,6 +229,8 @@ TRAIN_MOVE = 0.01
 TRAIN_RTOL = 5e-2
 # and tests/test_edge_grad.py's tetrahedron sweep, card against CPU
 EDGE_SWEEP = (-0.05, 0.0, 0.12, 0.3)
+# phase 23: the regenerative driver's trace widths on bunny.json
+REGEN_WIDTHS = (8, 4, 1)
 EDGE_RTOL = 1e-5
 
 
@@ -1041,11 +1063,13 @@ SPPM_CHECK = {"render_method": "sppm", "sample_per_pixel": 2,
               "max_ray_depth": 5}
 
 
-def reference_check(overrides, path=GALLERY, wide=8):
-    """Phases 4, 9 and 11-16: a 48 x 36 render of overrides' method on the
-    card against the plain CPU path, within the image bar."""
+def reference_check(overrides, path=GALLERY, wide=8, regen=False):
+    """Phases 4, 9, 11-16 and 23: a 48 x 36 render of overrides' method (by
+    the regenerative driver with regen) on the card against the plain CPU
+    path, within the image bar."""
     import numpy as np
 
+    from goblin_tpu_torch.integrators.wavefront import render_wavefront
     from goblin_tpu_torch.scene.loader import load_scene
 
     images = []
@@ -1053,11 +1077,14 @@ def reference_check(overrides, path=GALLERY, wide=8):
         scene, meta = load_scene(path, overrides, device=device,
                                  trace_wide=wide)
         small_film(meta)
-        images.append(render_loaded(scene, meta).cpu().numpy())
+        img = (render_wavefront(scene, meta, pool=CHUNK) if regen
+               else render_loaded(scene, meta))
+        images.append(img.cpu().numpy())
     cpu, gpu = images
     close = (np.abs(gpu - cpu) <= 1e-4 + 1e-3 * np.abs(cpu)).all(axis=-1)
     rel_mean = abs(gpu.mean() - cpu.mean()) / cpu.mean()
-    print(f"  48x36 {overrides}, width {wide}: pixels within 1e-4 + 1e-3 rel "
+    print(f"  48x36 {overrides}, width {wide}"
+          f"{', regenerative' if regen else ''}: pixels within 1e-4 + 1e-3 rel "
           f"{close.mean():.4f}, mean card {gpu.mean():.6f} cpu "
           f"{cpu.mean():.6f} (rel diff {rel_mean:.2e})", flush=True)
     check(np.isfinite(gpu).all(), "card image has non-finite pixels")
@@ -1881,6 +1908,427 @@ def edge_path():
     return worst
 
 
+def images_agree(a, b, what):
+    """The image bar between two renders of one scene on the card."""
+    import numpy as np
+
+    close = (np.abs(a - b) <= 1e-4 + 1e-3 * np.abs(b)).all(axis=-1)
+    rel_mean = abs(a.mean() - b.mean()) / b.mean()
+    print(f"  {what}: pixels within 1e-4 + 1e-3 rel {close.mean():.6f}, means "
+          f"{a.mean():.6f} / {b.mean():.6f} (rel diff {rel_mean:.2e})",
+          flush=True)
+    check(np.isfinite(a).all() and b.mean() > 0, f"{what}: a bad image")
+    check(close.mean() >= 0.99 and rel_mean <= 1e-3,
+          f"{what}: the images disagree")
+
+
+def driver_turn(scene, meta, regen, spp=None):
+    """One render of a loaded scene (at spp, default the scene's) by the
+    chunked driver or the regenerative one (pool CHUNK), with the launch
+    counters set to 0 just before it -> (image, stats or None, launches,
+    seconds)."""
+    import torch
+
+    from goblin_tpu_torch.integrators import common
+    from goblin_tpu_torch.integrators.wavefront import render_wavefront
+    from goblin_tpu_torch.ops import trace as tt
+    from goblin_tpu_torch.render import make_li
+
+    torch.cuda.synchronize()
+    tt.reset_launches()
+    t0 = time.perf_counter()
+    if regen:
+        img, stats = render_wavefront(scene, meta, spp=spp, pool=CHUNK,
+                                      with_stats=True)
+    else:
+        img, stats = common.render(scene, meta, make_li(meta), spp=spp,
+                                   chunk_size=CHUNK), None
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    return img.cpu().numpy(), stats, dict(tt.launches), secs
+
+
+def regen_numbers(stats):
+    """What phase 23 prints and keeps of a regenerative render's stats."""
+    live = [n / stats["pool"] for n in stats["live_lanes"]]
+    print(f"    iterations {stats['iterations']}, pool {stats['pool']}, "
+          f"useful_segments {stats['useful_segments']} of "
+          f"{stats['lane_rays']} lane-rays; live lanes a iteration "
+          f"{' '.join(f'{v:.3f}' for v in live)}", flush=True)
+    return {"iterations": stats["iterations"],
+            "useful_segments": stats["useful_segments"],
+            "lane_rays": stats["lane_rays"], "live_share": live}
+
+
+def regen_bunny():
+    """Phase 23, bunny.json (4 spp, depth 5): at each of REGEN_WIDTHS, the
+    chunked and the regenerative driver in turns (chunked, regenerative,
+    regenerative, chunked) on one loaded scene: 2 trace launches an
+    iteration (the scene has no mask), the chunked driver's 96, the images
+    within the bar of each other. Then the regenerative render through
+    render_context at width 8 (the main path's launches), and once more
+    under the profiler, which counts its device-to-host reads: one an
+    iteration. Returns ({width: launches of render_context's run}, numbers)."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from goblin_tpu_torch.integrators.wavefront import render_wavefront
+    from goblin_tpu_torch.ops import trace as tt
+    from goblin_tpu_torch.render import render_context
+    from goblin_tpu_torch.scene.loader import load_scene
+
+    numbers, iterations = {}, {}
+    for wide in REGEN_WIDTHS:
+        scene, meta = load_scene(BUNNY, SETTINGS, device="cuda",
+                                 trace_wide=wide)
+        check(not meta.has_null and meta.all_delta_lights,
+              "bunny.json lost a feature")
+        spp = meta.settings["sample_per_pixel"]
+        name = kernel_name(wide)
+        secs = {False: [], True: []}
+        images = {}
+        for regen in (False, True, True, False):
+            img, turn_stats, launches, t = driver_turn(scene, meta, regen)
+            secs[regen].append(t / spp)
+            if regen:
+                stats = turn_stats
+            want = 2 * stats["iterations"] if regen else EXPECTED_LAUNCHES
+            check(launches == no_launches(**{name: want}),
+                  f"bunny width {wide} {'regenerative' if regen else 'chunked'}"
+                  f": launches {launches}, expected {want} of {name}")
+            images[regen] = img
+        print(f"  bunny width {wide}, {spp} spp: seconds a pass, chunked "
+              f"{' '.join(f'{v:.4f}' for v in secs[False])} (turns 1 and 4), "
+              f"regenerative {' '.join(f'{v:.4f}' for v in secs[True])} "
+              f"(turns 2 and 3); launches a render, chunked "
+              f"{EXPECTED_LAUNCHES}, regenerative {2 * stats['iterations']}",
+              flush=True)
+        numbers[wide] = dict(regen_numbers(stats),
+                             seconds_per_pass={"chunked": secs[False],
+                                               "regenerative": secs[True]})
+        iterations[wide] = stats["iterations"]
+        images_agree(images[True], images[False],
+                     f"bunny width {wide}, regenerative vs chunked")
+        if wide == 8:  # and at 1 spp, in turns
+            one, one_stats = {False: [], True: []}, None
+            for regen in (False, True, True, False):
+                _, turn_stats, _, t = driver_turn(scene, meta, regen, spp=1)
+                one[regen].append(t)
+                one_stats = turn_stats or one_stats
+            print(f"  bunny width 8, 1 spp: seconds a pass, chunked "
+                  f"{' '.join(f'{v:.4f}' for v in one[False])}, regenerative "
+                  f"{' '.join(f'{v:.4f}' for v in one[True])}", flush=True)
+            numbers["1 spp, width 8"] = dict(
+                regen_numbers(one_stats), seconds_per_pass={
+                    "chunked": one[False], "regenerative": one[True]})
+        del scene
+    counts = {}
+    for wide in REGEN_WIDTHS:
+        tt.reset_launches()
+        img, meta = render_context(BUNNY, SETTINGS, device="cuda",
+                                   chunk_size=CHUNK, trace_wide=wide,
+                                   regen=True, pool=CHUNK)
+        counts[wide] = dict(tt.launches)
+        want = 2 * iterations[wide]
+        check(counts[wide] == no_launches(**{kernel_name(wide): want}),
+              f"render_context(regen=True) width {wide}: launches "
+              f"{counts[wide]}, expected {want}")
+        check(np.isfinite(img.cpu().numpy()).all(), "non-finite pixels")
+    scene, meta = load_scene(BUNNY, SETTINGS, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        render_wavefront(scene, meta, pool=CHUNK)
+    ops = [e.name for e in prof.events()]
+    reads = ops.count("aten::_local_scalar_dense")
+    print(f"  render_context(regen=True) launches by width {counts}; "
+          f"device-to-host reads of a width-8 render {reads} for "
+          f"{iterations[8]} iterations, aten::nonzero {ops.count('aten::nonzero')}",
+          flush=True)
+    check(reads == iterations[8] and "aten::nonzero" not in ops,
+          f"{reads} reads for {iterations[8]} iterations")
+    numbers["reads_width_8"] = reads
+    return counts, numbers
+
+
+def fog_without_bssrdf(out_dir):
+    """The fog scene with its subsurface bunny given a Lambert material,
+    written into out_dir with its models' absolute paths -> its path."""
+    with open(FOG) as f:
+        doc = json.load(f)
+    for g in doc["geometries"]:
+        if "file" in g:
+            g["file"] = os.path.join(os.path.dirname(FOG), g["file"])
+    doc["materials"] = [
+        {"name": m["name"], "type": "lambert", "Kd": "purple"}
+        if m["type"] == "subsurface" else m for m in doc["materials"]]
+    path = os.path.join(out_dir, "fog_lambert.json")
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    return path
+
+
+def regen_scenes():
+    """Phase 23: the studio scene (area and sphere lights, spheres, disks,
+    a mask), the sky scene (the map's arm) and the fog scene without its
+    BSSRDF (the volume's (tr, Lv) arm) at 512 x 384, 4 spp, depth 5, width
+    8, regenerative against chunked: 1 + MAX_PUNCH launches an iteration
+    (the shadow ray's punch-through rounds and the combined closest-hit),
+    and the volume's 2 a homogeneous sample; then the fog scene as shipped
+    through render_context(regen=True), which supports() sends to the
+    chunked driver: its launches are the chunked render's. Returns
+    ({scene: launches}, numbers)."""
+    from goblin_tpu_torch.integrators import wavefront
+    from goblin_tpu_torch.ops import trace as tt
+    from goblin_tpu_torch.render import render_context
+    from goblin_tpu_torch.scene.loader import load_scene
+
+    counts, numbers = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        scenes = (("studio", STUDIO), ("sky", SKY),
+                  ("fog without BSSRDF", fog_without_bssrdf(tmp)))
+        for label, path in scenes:
+            scene, meta = load_scene(path, SETTINGS, device="cuda")
+            check(meta.has_null and wavefront.supports(meta),
+                  f"{label}: a feature is lost")
+            per_iter = 1 + MAX_PUNCH
+            if meta.volume is not None:
+                per_iter += 2 * meta.volume.sample_num
+            spp = meta.settings["sample_per_pixel"]
+            turns = {}
+            for regen in (True, False):
+                turns[regen] = driver_turn(scene, meta, regen)
+            img, stats, launches, t = turns[True]
+            want = per_iter * stats["iterations"]
+            print(f"  {label}: regenerative {t / spp:.4f} s a pass, chunked "
+                  f"{turns[False][3] / spp:.4f}; launches {launches} "
+                  f"(expected {want}: {per_iter} an iteration)", flush=True)
+            check(launches == no_launches(trace_bvh8=want),
+                  f"{label}: launches {launches}, expected {want}")
+            numbers[label] = dict(regen_numbers(stats), seconds_per_pass={
+                "regenerative": t / spp, "chunked": turns[False][3] / spp})
+            counts[label] = launches
+            images_agree(img, turns[False][0],
+                         f"{label}, regenerative vs chunked")
+            del scene
+    tt.reset_launches()
+    img, meta = render_context(FOG, SETTINGS, device="cuda", chunk_size=CHUNK,
+                               regen=True, pool=CHUNK)
+    launches = dict(tt.launches)
+    spec = meta.camera.film
+    want = ((studio_launches_per_chunk(meta.settings["max_ray_depth"])
+             + medium_launches_per_chunk(meta))
+            * -(-spec.x_res * spec.y_res // CHUNK)
+            * meta.settings["sample_per_pixel"])
+    print(f"  fog scene (a BSSRDF) through render_context(regen=True): "
+          f"launches {launches}, the chunked driver's {want}", flush=True)
+    check(not wavefront.supports(meta) and
+          launches == no_launches(trace_bvh8=want),
+          f"the fog scene did not take the chunked driver: {launches}")
+    counts["fog, chunked by supports()"] = launches
+    return counts, numbers
+
+
+SHARDED_CHILD_FLAG = "--sharded-rank"
+SHARDED_TIMEOUT = 600
+
+
+def sharded_work(mesh):
+    """Phase 24 on one rank of the mesh: bunny PT at 1 spp by
+    render_sharded_dense and render_sharded (chunks of CHUNK), and one step
+    of make_sharded_train_step over the gallery scene's frame, chunk by
+    chunk of CHUNK pixel ids, each weighted by its share -> ({what: numpy
+    result}, {what: launches of this rank}, {what: seconds})."""
+    import torch
+
+    from goblin_tpu_torch.ops import trace as tt
+    from goblin_tpu_torch.parallel import mesh as pmesh
+    from goblin_tpu_torch.render import make_li
+    from goblin_tpu_torch.scene.loader import load_scene
+
+    out, counts, secs = {}, {}, {}
+
+    def timed(what, fn):
+        torch.cuda.synchronize()
+        tt.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs[what] = time.perf_counter() - t0
+        counts[what] = dict(tt.launches)
+        return res
+
+    scene, meta = load_scene(BUNNY, PT_CHECK, device=mesh.device)
+    li = make_li(meta)
+    for fn in (pmesh.render_sharded_dense, pmesh.render_sharded):
+        img = timed(f"bunny {fn.__name__}",
+                    lambda: fn(scene, meta, li, mesh, chunk_size=CHUNK))
+        out[fn.__name__] = img.cpu().numpy()
+    del scene
+    scene, meta = load_scene(GALLERY, GRAD_SETTINGS, device=mesh.device)
+    spec = meta.camera.film
+    ids = torch.arange(spec.x_res * spec.y_res, dtype=torch.int32,
+                       device=mesh.device)
+    step, _ = pmesh.make_sharded_train_step(scene, meta, make_li(meta), mesh)
+    out["loss"], grads = timed("gallery make_sharded_train_step", lambda:
+                               chunked_step(step, scene, ids))
+    out["g_light"], out["g_atlas"] = grads
+    return out, counts, secs
+
+
+def chunked_step(step, scene, ids):
+    """A train step over the frame's pixel ids, chunk by chunk of CHUNK,
+    each chunk's loss and gradients weighted by its share -> (loss, numpy
+    gradients)."""
+    params = (scene["lights"]["color"], scene["tex_atlas"])
+    loss, grads = 0.0, [0.0, 0.0]
+    for c0 in range(0, ids.numel(), CHUNK):
+        pix = ids[c0:c0 + CHUNK]
+        c_loss, c_grads = step(params, pix, 0)
+        share = pix.numel() / ids.numel()
+        loss = loss + share * c_loss
+        grads = [g + share * c for g, c in zip(grads, c_grads)]
+    return float(loss), [g.cpu().numpy() for g in grads]
+
+
+def sharded_child(out_dir):
+    """One rank of phase 24 on a machine with several cards, started by
+    sharded_path through multihost.launch_local: join the NCCL group from
+    the GOBLIN_* variables, do sharded_work, write its results."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from goblin_tpu_torch.parallel import mesh as pmesh
+    from goblin_tpu_torch.parallel import multihost
+
+    check(multihost.init_from_env(device="cuda"), "no process group")
+    try:
+        mesh = pmesh.make_mesh(device="cuda")
+        out, counts, secs = sharded_work(mesh)
+        np.savez(os.path.join(out_dir, f"rank{mesh.rank}.npz"),
+                 meta=json.dumps({"counts": counts, "seconds": secs,
+                                  "backend": dist.get_backend(),
+                                  "device": str(mesh.device)}), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_path():
+    """Phase 24: the sharded steps over an NCCL process group joined as
+    multihost.init_from_env joins it, one rank a card: world = min(2,
+    cards). One card: the group of world 1 in this process. Two or more:
+    two ranks, each a child process (launch_local, this script with
+    SHARDED_CHILD_FLAG), whose results must agree. Against this process's
+    one-process references: bunny PT at 1 spp by common.render (the image
+    bar, 8 launches a chunk of a rank's share), and make_train_step over
+    the gallery scene's frame (the gradient bars: loss within 1e-5 rel, gradients
+    within rtol 1e-4). Returns (launches by path of rank 0, numbers)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from goblin_tpu_torch.integrators import common
+    from goblin_tpu_torch.parallel import mesh as pmesh
+    from goblin_tpu_torch.parallel import multihost
+    from goblin_tpu_torch.render import make_li
+    from goblin_tpu_torch.scene.loader import load_scene
+
+    world = min(2, torch.cuda.device_count())
+    port = multihost.free_port()
+    if world == 1:
+        env = {"GOBLIN_COORDINATOR": f"localhost:{port}",
+               "GOBLIN_NUM_PROCS": "1", "GOBLIN_PROC_ID": "0"}
+        os.environ.update(env)
+        try:
+            check(multihost.init_from_env(device="cuda"), "no process group")
+        finally:
+            for key in env:
+                del os.environ[key]
+        try:
+            mesh = pmesh.make_mesh(device="cuda")
+            info = [{"backend": dist.get_backend(),
+                     "device": str(mesh.device)}]
+            out, counts, secs = sharded_work(mesh)
+            ranks = [out]
+            info[0].update(counts=counts, seconds=secs)
+        finally:
+            dist.destroy_process_group()
+    else:
+        with tempfile.TemporaryDirectory() as tmp:
+            results = multihost.launch_local(
+                world, [os.path.abspath(__file__), SHARDED_CHILD_FLAG, tmp],
+                port=port, timeout=SHARDED_TIMEOUT)
+            for rank, (rc, log) in enumerate(results):
+                print("\n".join(f"    rank {rank}: {line}"
+                                for line in log.splitlines()[-5:]))
+                check(rc == 0, f"rank {rank} exited with {rc}")
+            ranks, info = [], []
+            for rank in range(world):
+                with np.load(os.path.join(tmp, f"rank{rank}.npz")) as f:
+                    ranks.append({k: f[k] for k in f.files if k != "meta"})
+                    info.append(json.loads(str(f["meta"])))
+    for rank, i in enumerate(info):
+        print(f"  rank {rank} of world {world}: backend {i['backend']}, "
+              f"device {i['device']}; seconds "
+              f"{ {k: round(v, 4) for k, v in i['seconds'].items()} }",
+              flush=True)
+        check(i["backend"] == "nccl", f"backend {i['backend']}")
+    for rank in range(1, world):
+        for key, v in ranks[rank].items():
+            check(np.allclose(v, ranks[0][key], rtol=0, atol=1e-6),
+                  f"ranks 0 and {rank} disagree on {key}")
+    got, counts = ranks[0], info[0]["counts"]
+
+    # the one-process references, in this process without a group
+    scene, meta = load_scene(BUNNY, PT_CHECK, device="cuda")
+    ref = common.render(scene, meta, make_li(meta),
+                        chunk_size=CHUNK).cpu().numpy()
+    n_pix = meta.camera.film.x_res * meta.camera.film.y_res
+    del scene
+    sizes = {"render_sharded_dense": pmesh.dense_chunk_size(n_pix, world,
+                                                            CHUNK),
+             "render_sharded": pmesh.sharded_chunk_size(world, CHUNK)}
+    for name, chunk in sizes.items():
+        want = 8 * -(-n_pix // chunk)
+        launches = counts[f"bunny {name}"]
+        print(f"  {name}: bunny 1 spp depth 5, chunks of {chunk}; rank 0's "
+              f"launches {launches} (expected {want}: 8 a chunk)", flush=True)
+        check(launches == no_launches(trace_bvh8=want),
+              f"{name}: launches {launches}, expected {want}")
+        images_agree(got[name], ref, f"{name} (world {world}) vs common.render")
+    scene, meta = load_scene(GALLERY, GRAD_SETTINGS, device="cuda")
+    spec = meta.camera.film
+    ids = torch.arange(spec.x_res * spec.y_res, dtype=torch.int32,
+                       device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b_loss, b_g = chunked_step(pmesh.make_train_step(scene, meta,
+                                                     make_li(meta)),
+                               scene, ids)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    a_loss = float(got["loss"])
+    print(f"  make_sharded_train_step (world {world}) loss {a_loss:.8f}, "
+          f"make_train_step {b_loss:.8f} ({one_s:.4f} s a step); rank 0's "
+          f"launches {counts['gallery make_sharded_train_step']}", flush=True)
+    check(abs(a_loss - b_loss) <= 1e-5 * abs(b_loss),
+          f"sharded loss {a_loss}, make_train_step's {b_loss}")
+    for what, g, r in zip(("light colour", "tex_atlas"),
+                          (got["g_light"], got["g_atlas"]), b_g):
+        rel = float(np.abs(g - r).max() / max(np.abs(r).max(), 1e-30))
+        print(f"    {what}: largest difference {rel:.2e} of the largest "
+              f"entry", flush=True)
+        check(np.isfinite(g).all() and np.allclose(g, r, rtol=1e-4,
+                                                   atol=1e-9),
+              f"sharded {what} gradient disagrees ({rel:.2e})")
+    want = (studio_launches_per_chunk(meta.settings["max_ray_depth"])
+            * -(-ids.numel() // CHUNK))
+    check(counts["gallery make_sharded_train_step"]
+          == no_launches(trace_bvh8=want), "sharded train step launches")
+    numbers = {"world": world, "backend": info[0]["backend"],
+               "seconds_rank_0": info[0]["seconds"],
+               "make_train_step_s": one_s}
+    return counts, numbers
+
+
 def run():
     import torch
 
@@ -2016,6 +2464,16 @@ def run():
     train_launches, train_numbers = train_path()
     edge_rel = edge_path()
 
+    print("[23] the regenerative driver: bunny.json at widths 8, 4 and 1 "
+          "against the chunked driver, the studio, sky and fog scenes, "
+          "48 x 36 card vs CPU:", flush=True)
+    regen_counts, regen_bunny_numbers = regen_bunny()
+    reference_check(PT_CHECK, BUNNY, regen=True)
+    regen_scene_counts, regen_scene_numbers = regen_scenes()
+
+    print("[24] the sharded steps over a process group:", flush=True)
+    sharded_counts, sharded_numbers = sharded_path()
+
     print(f"  clocks.sm, power.draw, temperature: "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
     # every row's ms / plain_ms: the full-frame primary closest-hit launch
@@ -2056,9 +2514,14 @@ def run():
             "smoke path_tracing": smoke_counts[8],
             "bunny gradient pass": grad_counts[8],
             "gallery train step": train_launches,
+            "bunny path_tracing regenerative": regen_counts[8],
+            **{f"{k} path_tracing regenerative": v
+               for k, v in regen_scene_counts.items()},
+            **sharded_counts,
         },
         "trace_bvh2": {"bunny sppm": sppm_counts[1],
-                       "bunny gradient pass": grad_counts[1]},
+                       "bunny gradient pass": grad_counts[1],
+                       "bunny path_tracing regenerative": regen_counts[1]},
         "trace_bvh4": {
             "studio path_tracing": studio_counts[4],
             "studio sppm": studio_sppm_launches,
@@ -2066,6 +2529,7 @@ def run():
             "sky path_tracing": sky_counts[4],
             "fog path_tracing": fog_counts[4],
             "bunny gradient pass": grad_counts[4],
+            "bunny path_tracing regenerative": regen_counts[4],
         },
     }
     for r, width in ((row, 8), (k2_row, 1), (stats_row, 8)):
@@ -2105,7 +2569,12 @@ def run():
                       "fog CLI 16 spp": fog_cli_s,
                       "smoke path_tracing steady pass": smoke_s[8],
                       "bunny gradient pass by width": grad_numbers,
-                      "gallery train step": train_numbers}
+                      "gallery train step": train_numbers,
+                      "regenerative driver, bunny by width":
+                          regen_bunny_numbers,
+                      "regenerative driver, other scenes at width 8":
+                          regen_scene_numbers,
+                      "sharded steps": sharded_numbers}
     row["edge_gradient_card_vs_cpu_rel"] = edge_rel
     # no render path runs the stats instance: its row counts phase 7's census
     stats_row["launches"] = stats_launches
@@ -2127,7 +2596,10 @@ def run():
 
 if __name__ == "__main__":
     try:
-        run()
+        if sys.argv[1:2] == [SHARDED_CHILD_FLAG]:
+            sharded_child(sys.argv[2])
+        else:
+            run()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         sys.exit(1)

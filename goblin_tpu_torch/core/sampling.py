@@ -1,5 +1,7 @@
 """Sampling warps, MIS weights, the 1-D and 2-D CDF tables and the radical
-inverse the integrators use (port of part of goblin_tpu/core/sampling.py).
+inverses (port of goblin_tpu/core/sampling.py; its key-based
+stratified_1d / stratified_2d draw from jax.random, and the port's
+integrators take their hash-keyed counterparts in integrators/common.py).
 
 Warps take uniform [0, 1) samples of any batch shape and return matching
 outputs, with the pdfs as separate functions (reference
@@ -8,6 +10,7 @@ src/GoblinSampler.cpp).
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -52,6 +55,10 @@ def uniform_sample_hemisphere(u1, u2):
     phi = TWO_PI * u2
     return torch.stack([sin_t * torch.cos(phi), sin_t * torch.sin(phi), u1],
                        dim=-1)
+
+
+def uniform_hemisphere_pdf():
+    return INV_TWO_PI
 
 
 def cosine_sample_hemisphere(u1, u2):
@@ -267,3 +274,43 @@ def radical_inverse(n, base, n_digits: int = 32):
         inv = inv * inv_base
         n = n // base
     return val
+
+
+_PRIMES = [
+    2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41, 43, 47, 53, 59, 61, 67,
+    71, 73, 79, 83, 89, 97, 101, 103, 107, 109, 113, 127, 131, 137, 139, 149,
+    151, 157, 163, 167, 173, 179, 181, 191, 193, 197, 199, 211, 223, 227, 229,
+    233, 239, 241, 251, 257, 263, 269, 271, 277, 281, 283, 293, 307, 311, 313,
+]
+
+
+def primes(n):
+    """The first n primes (host-side)."""
+    ps = list(_PRIMES)
+    c = ps[-1]
+    while len(ps) < n:
+        c += 2
+        if all(c % p for p in ps if p * p <= c):
+            ps.append(c)
+    return ps[:n]
+
+
+def permuted_radical_inverse(n, base: int, perm):
+    """Radical inverse of the integer n (taken as uint32) in `base` with the
+    digit permutation perm (base,): ceil(32 / log2(base)) + 1 digits, then
+    the closed-form tail of the permuted zero digits that follow
+    (reference src/GoblinSampler.cpp:700-748), clamped below 1. float32,
+    summed in goblin_tpu's order, each digit's multiply-add rounded once as
+    radical_inverse's."""
+    n = torch.as_tensor(n, dtype=torch.int64) & 0xFFFFFFFF
+    perm = torch.as_tensor(perm, device=n.device).to(torch.float32)
+    f32 = functools.partial(torch.tensor, dtype=torch.float32, device=n.device)
+    inv_base = f32(1.0 / base)
+    inv = inv_base.expand(n.shape)
+    val = torch.zeros(n.shape, dtype=torch.float32, device=n.device)
+    for _ in range(int(math.ceil(32 / math.log2(base))) + 1):
+        val = fma_f32(perm[n % base], inv, val)
+        inv = inv * inv_base
+        n = n // base
+    val = val + perm[0] * inv / f32(1.0 - 1.0 / base) * inv_base
+    return torch.minimum(val, f32(1.0 - 1e-7))

@@ -1,5 +1,5 @@
-"""Host-side OBJ loading into numpy arrays (port of
-goblin_tpu/geometry/mesh.py's loader).
+"""Host-side OBJ loading and writing, numpy arrays (port of
+goblin_tpu/geometry/mesh.py).
 
 Parity with the reference parser (src/GoblinPolygonMesh.cpp:58-262):
 v/vn/vt records, triangle and quad faces (quads split 0-1-2 / 0-2-3),
@@ -24,6 +24,18 @@ class TriangleMesh:
     normals: np.ndarray | None  # (V, 3) float32 or None
     uvs: np.ndarray | None  # (V, 2) float32 or None
     faces: np.ndarray  # (F, 3) int32
+
+    @property
+    def num_faces(self) -> int:
+        return int(self.faces.shape[0])
+
+    @property
+    def has_normals(self) -> bool:
+        return self.normals is not None
+
+    @property
+    def has_uvs(self) -> bool:
+        return self.uvs is not None
 
 
 def _resolve_index(raw: int, count: int) -> int:
@@ -100,3 +112,47 @@ def _load_obj_python(path: str) -> TriangleMesh:
         uvs=np.asarray(out_uv, dtype=np.float32) if any_uv else None,
         faces=np.asarray(faces, dtype=np.int32),
     )
+
+
+def make_sphere_mesh(radius: float, n_theta: int = 32,
+                     n_phi: int = 64) -> TriangleMesh:
+    """A UV sphere of n_theta x n_phi cells about the origin, z the pole
+    axis; the pole cells keep one triangle each (for tests)."""
+    th = np.linspace(0.0, np.pi, n_theta + 1)
+    ph = np.linspace(0.0, 2 * np.pi, n_phi + 1)
+    T, P = np.meshgrid(th, ph, indexing="ij")
+    pos = np.stack([radius * np.sin(T) * np.cos(P),
+                    radius * np.sin(T) * np.sin(P), radius * np.cos(T)],
+                   axis=-1).reshape(-1, 3).astype(np.float32)
+    uv = np.stack([P / (2 * np.pi), T / np.pi], axis=-1).reshape(-1, 2)
+    i, j = np.meshgrid(np.arange(n_theta), np.arange(n_phi), indexing="ij")
+    a, b = i * (n_phi + 1) + j, (i + 1) * (n_phi + 1) + j
+    c, d = b + 1, a + 1
+    # (a, b, c) degenerates at the south pole and (a, c, d) at the north:
+    # each cell row keeps the triangles that do not, in goblin_tpu's order
+    tris = np.stack([np.stack([a, b, c], -1), np.stack([a, c, d], -1)], 2)
+    keep = np.stack([i < n_theta - 1, i > 0], -1)
+    return TriangleMesh(positions=pos,
+                        normals=(pos / max(radius, 1e-9)).astype(np.float32),
+                        uvs=uv.astype(np.float32),
+                        faces=tris[keep].astype(np.int32))
+
+
+def write_obj(path: str, mesh: TriangleMesh) -> None:
+    """A minimal OBJ: v, vn and vt records as the mesh has them (6 and 6
+    decimals), one index a corner shared by all three."""
+    with open(path, "w") as f:
+        for p in mesh.positions:
+            f.write(f"v {p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n")
+        if mesh.normals is not None:
+            for n in mesh.normals:
+                f.write(f"vn {n[0]:.6f} {n[1]:.6f} {n[2]:.6f}\n")
+        if mesh.uvs is not None:
+            for t in mesh.uvs:
+                f.write(f"vt {t[0]:.6f} {t[1]:.6f}\n")
+        form = {(True, True): "{0}/{0}/{0}", (True, False): "{0}//{0}",
+                (False, True): "{0}/{0}", (False, False): "{0}"}[
+                    (mesh.normals is not None, mesh.uvs is not None)]
+        for face in mesh.faces:
+            f.write("f " + " ".join(form.format(int(k) + 1) for k in face)
+                    + "\n")

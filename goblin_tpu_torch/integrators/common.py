@@ -58,15 +58,47 @@ def stratified_2d(seed, pixel_ids, s_idx, n_spp, bounce, dim_a, dim_b):
     return u1, u2
 
 
+def _cell(s_idx, n_grid):
+    """The stratum (sx, sy) of sample s_idx (an int or a per-lane integer
+    tensor) on the n_grid x n_grid grid, as floats."""
+    sx, sy = s_idx % n_grid, s_idx // n_grid
+    if isinstance(s_idx, torch.Tensor):
+        return sx.to(torch.float32), sy.to(torch.float32)
+    return float(sx), float(sy)
+
+
 def pixel_samples(seed, pixel_ids, x_res, s_idx, n_grid):
-    """Stratified-jittered continuous image coords for sample index s_idx."""
+    """Stratified-jittered continuous image coords for sample index s_idx
+    (an int, or a tensor of one index a lane)."""
     px = (pixel_ids % x_res).to(torch.float32)
     py = torch.div(pixel_ids, x_res, rounding_mode="floor").to(torch.float32)
-    sx = float(s_idx % n_grid)
-    sy = float(s_idx // n_grid)
+    sx, sy = _cell(s_idx, n_grid)
     jx = hash_uniform(seed, pixel_ids, s_idx, BOUNCE_CAMERA, DIM_PIXEL_X)
     jy = hash_uniform(seed, pixel_ids, s_idx, BOUNCE_CAMERA, DIM_PIXEL_Y)
     return px + (sx + jx) / n_grid, py + (sy + jy) / n_grid
+
+
+def crop_pixel_ids(spec, device):
+    """The crop window's pixel ids (n,) int32, in row-major order."""
+    xs_, xc, ys_, yc = spec.crop_window()
+    rows = torch.arange(ys_, ys_ + yc, dtype=torch.int32, device=device)
+    cols = torch.arange(xs_, xs_ + xc, dtype=torch.int32, device=device)
+    return (rows[:, None] * spec.x_res + cols[None, :]).reshape(-1)
+
+
+def splat_pass(spec, color, weight, seed, pixel_ids, s_idx: int, n_grid, L):
+    """Splat one full-frame stratified pass L (n, 3) of the crop's pixel ids
+    (row-major) densely into the film, in place."""
+    xs_, xc, ys_, yc = spec.crop_window()
+    sx, sy = _cell(s_idx, n_grid)
+    jx = hash_uniform(seed, pixel_ids, s_idx, BOUNCE_CAMERA, DIM_PIXEL_X)
+    jy = hash_uniform(seed, pixel_ids, s_idx, BOUNCE_CAMERA, DIM_PIXEL_Y)
+    jx = (sx + jx) / n_grid
+    jy = (sy + jy) / n_grid
+    return film_mod.splat_dense(
+        spec, color, weight, jx.reshape(yc, xc), jy.reshape(yc, xc),
+        L.reshape(yc, xc, 3), ys_, xs_,
+    )
 
 
 def make_render_pass(scene, meta, li_fn, spp, seed, chunk_size=1 << 16):
@@ -74,39 +106,35 @@ def make_render_pass(scene, meta, li_fn, spp, seed, chunk_size=1 << 16):
     full-frame stratified sample per crop pixel, traced in row-major chunks
     of chunk_size pixels, then splatted densely into the film in place.
     Returns (render_pass, n_spp)."""
-    cam = meta.camera
-    spec = cam.film
+    spec = meta.camera.film
     n_grid = spp_grid(spp)
     dev = scene["tri_rows"].device
-    xs_, xc, ys_, yc = spec.crop_window()
-    rows = torch.arange(ys_, ys_ + yc, dtype=torch.int32, device=dev)
-    cols = torch.arange(xs_, xs_ + xc, dtype=torch.int32, device=dev)
-    pixel_ids = (rows[:, None] * spec.x_res + cols[None, :]).reshape(-1)
+    pixel_ids = crop_pixel_ids(spec, dev)
     n_pix = pixel_ids.numel()
 
     def render_pass(color, weight, s_idx: int):
         L = torch.empty((n_pix, 3), dtype=torch.float32, device=dev)
         for c0 in range(0, n_pix, chunk_size):
             pix = pixel_ids[c0:c0 + chunk_size]
-            x, y = pixel_samples(seed, pix, spec.x_res, s_idx, n_grid)
-            if cam.is_delta:  # a pinhole or orthographic camera has no lens
-                ray = cam.generate_ray(x, y)
-            else:
-                ray = cam.generate_ray(
-                    x, y,
-                    hash_uniform(seed, pix, s_idx, BOUNCE_CAMERA, DIM_LENS_U),
-                    hash_uniform(seed, pix, s_idx, BOUNCE_CAMERA, DIM_LENS_V))
+            ray = camera_rays(meta.camera, seed, pix, s_idx, n_grid)
             L[c0:c0 + pix.numel()] = li_fn(scene, meta, ray, pix, s_idx, seed)
-        jx = hash_uniform(seed, pixel_ids, s_idx, BOUNCE_CAMERA, DIM_PIXEL_X)
-        jy = hash_uniform(seed, pixel_ids, s_idx, BOUNCE_CAMERA, DIM_PIXEL_Y)
-        jx = (float(s_idx % n_grid) + jx) / n_grid
-        jy = (float(s_idx // n_grid) + jy) / n_grid
-        return film_mod.splat_dense(
-            spec, color, weight, jx.reshape(yc, xc), jy.reshape(yc, xc),
-            L.reshape(yc, xc, 3), ys_, xs_,
-        )
+        return splat_pass(spec, color, weight, seed, pixel_ids, s_idx, n_grid,
+                          L)
 
     return render_pass, n_grid * n_grid
+
+
+def camera_rays(cam, seed, pixel_ids, s_idx, n_grid):
+    """The camera rays of sample s_idx (an int or a tensor a lane) of
+    pixel_ids: stratified-jittered image coords, and the lens samples of a
+    camera that has a lens."""
+    x, y = pixel_samples(seed, pixel_ids, cam.film.x_res, s_idx, n_grid)
+    if cam.is_delta:  # a pinhole or orthographic camera has no lens
+        return cam.generate_ray(x, y)
+    return cam.generate_ray(
+        x, y,
+        hash_uniform(seed, pixel_ids, s_idx, BOUNCE_CAMERA, DIM_LENS_U),
+        hash_uniform(seed, pixel_ids, s_idx, BOUNCE_CAMERA, DIM_LENS_V))
 
 
 def render(scene, meta, li_fn, spp=None, seed=None, chunk_size=1 << 16,

@@ -3,8 +3,12 @@ for its six methods: path_tracing, ao, whitted, light_tracing, bdpt and
 sppm).
 
     python -m goblin_tpu_torch scene.json [render_method] [--device cuda|cpu]
+                               [--regen]
 
 The method defaults to the scene's own render_setting (bunny.json: sppm).
+--regen path-traces with the regenerative wavefront driver
+(integrators/wavefront.py) where it covers the scene (not with a BSSRDF),
+goblin_tpu's GOBLIN_REGEN=1.
 The device defaults to cuda; asking for cuda without a card raises, and
 the CPU (the kernels' plain versions) runs only when asked for. The image
 goes where the film's file says, as the film asks: bloomed, then tone
@@ -45,14 +49,17 @@ def make_li(meta):
 
 
 def render_context(path: str, overrides=None, device="cuda",
-                   chunk_size=1 << 16, report=None, trace_wide=8):
+                   chunk_size=1 << 16, report=None, trace_wide=8,
+                   regen=False, pool=None):
     """Load and render a scene -> (image (H, W, 3) tensor, meta).
 
     chunk_size: pixels per chunk of the camera-sampled integrators (path
     tracing, ao, whitted); report(done, total) after each pass or
     iteration; trace_wide: the trace kernel's tree, 8 (BVH8), 4 (BVH4) or 1
     (binary). The splatting methods go to splatting.render_dispatch, with
-    their own chunk sizes.
+    their own chunk sizes. regen: path tracing by the regenerative driver
+    with a pool of `pool` lanes (default max(chunk_size, 16,384)) where
+    wavefront.supports(meta), else the chunked driver.
     """
     scene, meta = load_scene(path, overrides, device=device,
                              trace_wide=trace_wide)
@@ -62,6 +69,13 @@ def render_context(path: str, overrides=None, device="cuda",
 
         return splatting.render_dispatch(scene, meta, method,
                                          report=report), meta
+    if regen and method in PATH_METHODS:
+        from .integrators import wavefront
+
+        if wavefront.supports(meta):
+            pool = max(chunk_size, 1 << 14) if pool is None else pool
+            return wavefront.render_wavefront(scene, meta, pool=pool,
+                                              report=report), meta
     img = common.render(scene, meta, make_li(meta), chunk_size=chunk_size,
                         report=report)
     return img, meta
@@ -72,6 +86,8 @@ def main(argv=None) -> int:
     ap.add_argument("scene")
     ap.add_argument("render_method", nargs="?")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--regen", action="store_true",
+                    help="path tracing by the regenerative wavefront driver")
     args = ap.parse_args(argv)
     overrides = {}
     if args.render_method:
@@ -83,7 +99,7 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     img, meta = render_context(args.scene, overrides, device=args.device,
-                               report=report)
+                               report=report, regen=args.regen)
     print(file=sys.stderr)
     out = film_mod.write_image(meta.camera.film, img)
     print(f"render time: {time.time() - t0:.2f}s -> {out}")

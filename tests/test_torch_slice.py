@@ -137,7 +137,9 @@ def test_port_imports_neither_jax_nor_goblin_tpu(tmp_path):
     gallery scene (the texture chain) under whitted, the sky scene (the
     map) under bdpt and the smoke scene (a heterogeneous volume and
     subsurface materials), takes a train step and an edge-sampled boundary
-    gradient, and never imports jax or goblin_tpu."""
+    gradient, renders by the regenerative driver and by a one-process
+    sharded pass, calls the rest of core/ and the sphere mesh, and never
+    imports jax or goblin_tpu."""
     scene = _two_triangle_scene(tmp_path)
     script = textwrap.dedent(f"""
         import dataclasses, sys
@@ -204,6 +206,22 @@ def test_port_imports_neither_jax_nor_goblin_tpu(tmp_path):
             [5, 5, 5], verts, faces, edge_grad.build_edge_adjacency(faces),
             np.tile(np.float32([1, 0, 0]), (4, 1)))
         assert g.shape == (3,) and bool((g != 0).all())
+        from goblin_tpu_torch.integrators import wavefront
+        from goblin_tpu_torch.parallel import mesh as pmesh
+        img, meta = render_context({scene!r}, device="cpu", regen=True)
+        assert wavefront.supports(meta) and tuple(img.shape) == (4, 4, 3)
+        scene, meta = load_scene({scene!r}, device="cpu")
+        mesh = pmesh.make_mesh(device="cpu")
+        img = pmesh.render_sharded_dense(scene, meta, make_li(meta), mesh)
+        assert tuple(img.shape) == (4, 4, 3) and float(img.mean()) > 0
+        from goblin_tpu_torch.core import sampling, vecmath
+        from goblin_tpu_torch.geometry import intersect, mesh as gmesh
+        q = vecmath.euler_to_quat([0.0, 0.0, 90.0])
+        m = vecmath.compose_matrix([0.0, 0.0, 0.0], q, [1.0, 1.0, 1.0])
+        assert vecmath.transform_point(m, torch.ones(3)).shape == (3,)
+        assert sampling.primes(3) == [2, 3, 5]
+        sphere = gmesh.make_sphere_mesh(1.0, 4, 8)
+        assert sphere.num_faces == 48
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "goblin_tpu" or m.startswith("goblin_tpu.")]
         assert not bad, bad
