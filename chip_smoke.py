@@ -132,7 +132,16 @@ Phases, each printed on its own lines, and any failure exits non-zero:
      results must agree: render_sharded_dense and render_sharded of bunny
      at 1 spp against common.render (8 launches a chunk of a rank's share),
      make_sharded_train_step on the gallery scene against make_train_step
-     at the gradient bars (21 launches a chunk); every group is destroyed.
+     at the gradient bars (21 launches a chunk); every group is destroyed;
+ 25. the measuring programs of bench_torch.py at 512 x 384, each
+     subcommand's function once, their JSON lines printed: pt (bench.py's
+     line: 24 launches a pass, 8 dispatched lane-rays a lane-sample, and
+     its census on a 48 x 36 film on the card equal to the CPU's), methods
+     (SPPM, BDPT, light tracing at 2 spp with bench_methods.py's lane-ray
+     counts), scaling (the prebuilt pass against render_sharded_dense on a
+     one-rank NCCL group, images within 1e-5) and trace (the 8 wavefront
+     classes of pass 0 over the whole frame at widths 8, 4 and 1, hit
+     masks equal to width 8's, t within 1e-4 rel).
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Each kernel's row carries its time (CUDA events over launches queued behind
 a spinning kernel, so the host's launch rate stays out of it), its plain
@@ -152,6 +161,14 @@ import sys
 import tempfile
 import time
 
+try:
+    # the timing and bound of a kernel launch, shared with bench_torch.py
+    from goblin_tpu_torch.bench import (KERNEL_REPS, bound, nvidia_smi,
+                                        table_bytes, time_ms)
+except ImportError as e:
+    sys.exit(f"chip_smoke: FAILED: goblin_tpu_torch is not beside this "
+             f"script: {e}")
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 BUNNY = os.path.join(REPO, "examples", "bunny.json")
 STUDIO = os.path.join(REPO, "examples", "bunny_studio.json")
@@ -163,17 +180,6 @@ SETTINGS = {"render_method": "path_tracing", "max_ray_depth": 5,
             "sample_per_pixel": 4}
 CHUNK = 1 << 16
 EXPECTED_LAUNCHES = 8 * 3 * 4
-KERNEL_REPS = 20
-# the spinning kernel that timed launches queue behind: about 10 ms
-SPIN_CYCLES = 20_000_000
-# NVIDIA H100 SXM: device memory rate and float32 rate outside tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_FLOP_S = 67e12
-# float operations of one slab test and one Moller-Trumbore test, as the
-# kernels write them (csrc/trace_common.cuh)
-SLAB_FLOP = 25
-TRI_FLOP = 53
-NO_LIBRARY = "none: no PyTorch call traverses a BVH"
 # phase 8: bunny.json's own settings but 4 of its 100 iterations
 SPPM_ITERATIONS = 4
 # phase 12: the studio scene's SPPM iterations
@@ -232,6 +238,11 @@ EDGE_SWEEP = (-0.05, 0.0, 0.12, 0.3)
 # phase 23: the regenerative driver's trace widths on bunny.json
 REGEN_WIDTHS = (8, 4, 1)
 EDGE_RTOL = 1e-5
+# phase 25: bench_methods.py's lane-rays at 2 spp, 512 x 384, depth 5, and
+# the images of bench_scaling.py's check
+BENCH_LANE_RAYS = {"sppm": 5_505_024, "bdpt": 13_762_560,
+                   "light_tracing": 3_932_160}
+BENCH_MAXDIFF = 1e-5
 
 
 class SmokeFailure(Exception):
@@ -250,13 +261,6 @@ def no_launches(**counts):
     want = dict.fromkeys(tt.launches, 0)
     want.update(counts)
     return want
-
-
-def nvidia_smi(query):
-    out = subprocess.run(
-        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def ptxas_numbers(log):
@@ -292,50 +296,6 @@ def chunked(fn, scene, rays, any_hit, **kw):
     parts = [fn(scene, *(r[c:c + CHUNK] for r in rays), any_hit=any_hit, **kw)
              for c in range(0, n, CHUNK)]
     return [torch.cat(v) for v in zip(*parts)]
-
-
-def time_ms(fn, reps):
-    """Mean ms of fn() over reps calls, CUDA events around the batch. A
-    batch of more than one call queues behind a spinning kernel, so the
-    device runs the calls back to back however slowly the host issues
-    them."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    if reps > 1:
-        torch.cuda._sleep(SPIN_CYCLES)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def bound(n_rays, table_bytes, box_tests, tri_tests, ms, out_bytes=17):
-    """The least time the card could take for a trace: the larger of its
-    bytes (each ray 32 B in and out_bytes out, the tables once) over the
-    memory rate and its operations (this run's box and triangle tests) over
-    the float32 rate. Returns the row's bound keys."""
-    n_bytes = n_rays * (32 + out_bytes) + table_bytes
-    flop = box_tests * SLAB_FLOP + tri_tests * TRI_FLOP
-    by_bytes, by_ops = n_bytes / PEAK_BYTES_S * 1e3, flop / PEAK_FLOP_S * 1e3
-    bound_ms = max(by_bytes, by_ops)
-    return {"bound_ms": bound_ms,
-            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-            "bound_counts": {"rays": n_rays, "bytes": n_bytes,
-                             "table_bytes": table_bytes,
-                             "box_tests": box_tests, "tri_tests": tri_tests,
-                             "flop": flop},
-            "roofline_share": bound_ms / ms,
-            "library_ms": None, "library": NO_LIBRARY}
-
-
-def table_bytes(scene, names):
-    return sum(scene[k].numel() * scene[k].element_size() for k in names)
 
 
 def wavefronts(scene, meta):
@@ -2329,16 +2289,70 @@ def sharded_path():
     return counts, numbers
 
 
+def bench_path():
+    """Phase 25: bench_torch.py's four subcommands once each at full size,
+    their lines printed. Returns the launches by path of each kernel."""
+    import bench_torch as bt
+    from goblin_tpu_torch import bench
+
+    t0 = time.perf_counter()
+    try:
+        pt = bt.pt()
+        methods = bt.methods()
+        scaling = bt.scaling()
+        trace = bt.trace()
+    except bt.BenchError as e:
+        raise SmokeFailure(f"bench_torch: {e}") from e
+    for line in [pt, *methods, scaling, *trace]:
+        print(f"  {json.dumps(line)}", flush=True)
+    check(pt["trace_launches_per_pass"] == 24,
+          f"pt: {pt['trace_launches_per_pass']} launches a pass, expected 24")
+    check(pt["dispatched_rays_per_lane_sample"] == 8,
+          f"pt: {pt['dispatched_rays_per_lane_sample']} dispatched lane-rays")
+    counts = [bench.pt_census(*bench.load_bunny(
+        bench.PT_SETTINGS, device, film=(48, 36))) for device in ("cpu", "cuda")]
+    print(f"  pt census at 48 x 36 (shadow rays considered, continuation rays "
+          f"traced a bounce): CPU {counts[0]}, card {counts[1]}", flush=True)
+    check(counts[0] == counts[1], "pt: the card's census differs from the "
+                                  "CPU's")
+    for method, line in zip(bench.METHODS, methods):
+        check(line["lane_rays"] == BENCH_LANE_RAYS[method],
+              f"{method}: {line['lane_rays']} lane-rays, expected "
+              f"{BENCH_LANE_RAYS[method]}")
+    check(scaling["unsharded_vs_mesh_maxdiff"] <= BENCH_MAXDIFF,
+          f"scaling: images differ by {scaling['unsharded_vs_mesh_maxdiff']}")
+    classes = [line for line in trace if line["metric"] == "bunny_trace_class"]
+    check(len(classes) == 8 * len(bench.WIDTHS),
+          f"trace: {len(classes)} lines, expected 8 classes x "
+          f"{len(bench.WIDTHS)} widths")
+    for line in classes:
+        check(line["hits_equal_width8"] and line["t_within_rtol_width8"],
+              f"trace {line['class']} width {line['trace_wide']}: the results "
+              "differ from width 8's")
+    secs = time.perf_counter() - t0
+    print(f"  phase 25: {secs:.1f} s", flush=True)
+    trace_counts = {}
+    for line in classes:
+        trace_counts[line["kernel"]] = (trace_counts.get(line["kernel"], 0)
+                                        + line["trace_launches"])
+    by_path = {"bench pt": {"trace_bvh8": int(pt["trace_launches_per_pass"]
+                                              * pt["spp"])},
+               "bench scaling (a render_sharded_dense pass)": {
+                   "trace_bvh8": int(scaling[
+                       "trace_launches_per_sharded_pass"])},
+               "bench trace (8 classes x 21 launches)": trace_counts}
+    for method, line in zip(bench.METHODS, methods):
+        by_path[f"bench {method}"] = {"trace_bvh8": line["trace_launches"]}
+    return by_path, secs
+
+
 def run():
     import torch
 
     check(torch.cuda.is_available(), "CUDA is not available")
-    sys.path.insert(0, REPO)
-    try:
-        from goblin_tpu_torch.ops import trace as tt
-        from goblin_tpu_torch.scene.loader import load_scene
-    except ImportError as e:
-        raise SmokeFailure(f"goblin_tpu_torch is not beside this script: {e}")
+    from goblin_tpu_torch.ops import trace as tt
+    from goblin_tpu_torch.scene.loader import load_scene
+
     smi = nvidia_smi("name,power.limit")
     print(f"[1] card: {smi}; torch {torch.__version__} CUDA "
           f"{torch.version.cuda}; device {torch.cuda.get_device_name(0)}",
@@ -2474,6 +2488,10 @@ def run():
     print("[24] the sharded steps over a process group:", flush=True)
     sharded_counts, sharded_numbers = sharded_path()
 
+    print("[25] the measuring programs (bench_torch.py pt, methods, scaling, "
+          "trace) at 512 x 384:", flush=True)
+    bench_counts, bench_s = bench_path()
+
     print(f"  clocks.sm, power.draw, temperature: "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
     # every row's ms / plain_ms: the full-frame primary closest-hit launch
@@ -2518,10 +2536,13 @@ def run():
             **{f"{k} path_tracing regenerative": v
                for k, v in regen_scene_counts.items()},
             **sharded_counts,
+            **{k: v for k, v in bench_counts.items() if "trace_bvh8" in v},
         },
         "trace_bvh2": {"bunny sppm": sppm_counts[1],
                        "bunny gradient pass": grad_counts[1],
-                       "bunny path_tracing regenerative": regen_counts[1]},
+                       "bunny path_tracing regenerative": regen_counts[1],
+                       **{k: v for k, v in bench_counts.items()
+                          if "trace_bvh2" in v}},
         "trace_bvh4": {
             "studio path_tracing": studio_counts[4],
             "studio sppm": studio_sppm_launches,
@@ -2530,6 +2551,8 @@ def run():
             "fog path_tracing": fog_counts[4],
             "bunny gradient pass": grad_counts[4],
             "bunny path_tracing regenerative": regen_counts[4],
+            **{k: v for k, v in bench_counts.items()
+               if "trace_bvh4" in v},
         },
     }
     for r, width in ((row, 8), (k2_row, 1), (stats_row, 8)):
@@ -2574,7 +2597,8 @@ def run():
                           regen_bunny_numbers,
                       "regenerative driver, other scenes at width 8":
                           regen_scene_numbers,
-                      "sharded steps": sharded_numbers}
+                      "sharded steps": sharded_numbers,
+                      "phase 25 (the measuring programs)": bench_s}
     row["edge_gradient_card_vs_cpu_rel"] = edge_rel
     # no render path runs the stats instance: its row counts phase 7's census
     stats_row["launches"] = stats_launches
