@@ -142,6 +142,16 @@ Phases, each printed on its own lines, and any failure exits non-zero:
      one-rank NCCL group, images within 1e-5) and trace (the 8 wavefront
      classes of pass 0 over the whole frame at widths 8, 4 and 1, hit
      masks equal to width 8's, t within 1e-4 rel).
+ 26. the entry points of goblin_tpu_torch/entry.py (__graft_entry__.py's
+     counterpart): entry()'s fn on its 1,024 example pixel ids and on
+     65,536, each call 38 launches of the width-8 kernel (bunny.json's own
+     depth 20: 1 + 2 x 18 + 1), seconds a call, against entry(device=
+     "cpu")'s fn on the example ids and on 1,024 ids strided over the film
+     at the image bar; dryrun_multichip(min(2, cards)) on the cards (its
+     line, each rank's backend and launches; world 1 on a machine of one
+     card); the fog scene's gradient pass (phase 21's loss and bars) at 48
+     x 36, card against CPU, its forward launches a chunk those of phase
+     19 and none in the backward.
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Each kernel's row carries its time (CUDA events over launches queued behind
 a spinning kernel, so the host's launch rate stays out of it), its plain
@@ -243,6 +253,15 @@ EDGE_RTOL = 1e-5
 BENCH_LANE_RAYS = {"sppm": 5_505_024, "bdpt": 13_762_560,
                    "light_tracing": 3_932_160}
 BENCH_MAXDIFF = 1e-5
+# phase 26: entry()'s batches (its example ids, and a chunk), its launches a
+# call at bunny.json's depth 20, the calls timed a batch
+ENTRY_BATCHES = (1024, CHUNK)
+ENTRY_LAUNCHES = 1 + 2 * 18 + 1
+ENTRY_REPS = 3
+# the strided ids of the card-vs-CPU check (the example ids, the film's top
+# two rows, see almost only black) and their sample
+ENTRY_STRIDE = 192
+ENTRY_CHECK_SAMPLE = 3
 
 
 class SmokeFailure(Exception):
@@ -2346,6 +2365,113 @@ def bench_path():
     return by_path, secs
 
 
+def entry_path():
+    """Phase 26, entry(): 38 launches a call of fn on its example ids and on
+    a chunk of ids, seconds a call, and the card against entry(device=
+    "cpu") on the example ids and on strided ids at the image bar.
+    Returns (launches of the last timed call, numbers)."""
+    import torch
+
+    from goblin_tpu_torch import entry as te
+    from goblin_tpu_torch.ops import trace as tt
+
+    t0 = time.perf_counter()
+    fn, (ids, s_idx) = te.entry()
+    numbers = {"load_s": time.perf_counter() - t0}
+    check(ids.device.type == "cuda" and ids.dtype == torch.int32
+          and ids.numel() == ENTRY_BATCHES[0] and s_idx == 0,
+          f"entry()'s example args {ids.shape} {ids.dtype} {s_idx}")
+    counts = {}
+    for n in ENTRY_BATCHES:
+        pix = ids if n == ids.numel() else torch.arange(
+            n, dtype=torch.int32, device="cuda")
+        fn(pix, s_idx)  # a warm-up call
+        secs = []
+        for _ in range(ENTRY_REPS):
+            torch.cuda.synchronize()
+            tt.reset_launches()
+            t0 = time.perf_counter()
+            L = fn(pix, s_idx)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            counts = dict(tt.launches)
+            check(counts == no_launches(trace_bvh8=ENTRY_LAUNCHES),
+                  f"entry() on {n} ids: launches {counts}, expected "
+                  f"{ENTRY_LAUNCHES} of trace_bvh8")
+        check(tuple(L.shape) == (n, 3) and bool(L.isfinite().all()),
+              f"entry() on {n} ids: {tuple(L.shape)} or not finite")
+        numbers[f"seconds_a_call_{n}_ids"] = secs
+        print(f"  entry() fn on {n} ids: {ENTRY_LAUNCHES} launches a call, "
+              f"seconds a call {' '.join(f'{v:.4f}' for v in secs)} "
+              f"({n / min(secs) / 1e6:.3f} M samples/s at best)", flush=True)
+    cpu_fn, _ = te.entry(device="cpu")
+    strided = torch.arange(ENTRY_BATCHES[0], dtype=torch.int32,
+                           device="cuda") * ENTRY_STRIDE
+    for what, pix, s in (("example ids", ids, s_idx),
+                         ("strided ids", strided, ENTRY_CHECK_SAMPLE)):
+        images_agree(fn(pix, s).cpu().numpy(),
+                     cpu_fn(pix.cpu(), s).numpy(),
+                     f"entry() {what}, card vs CPU")
+    return counts, numbers
+
+
+def dryrun_path():
+    """Phase 26, dryrun_multichip(min(2, cards)) on the cards: its line,
+    each rank's backend, device and trace launches. Returns (launches of
+    rank 0, numbers)."""
+    import torch
+
+    from goblin_tpu_torch import entry as te
+
+    world = min(2, torch.cuda.device_count())
+    if world == 1:
+        print("  one card: the dryrun runs at world 1 (one NCCL rank)",
+              flush=True)
+    ranks = []
+    t0 = time.perf_counter()
+    loss, grad_l1 = te.dryrun_multichip(world, device="cuda", ranks=ranks)
+    secs = time.perf_counter() - t0
+    for rank, r in enumerate(ranks):
+        print(f"  rank {rank} of world {world}: backend {r['backend']}, "
+              f"device {r['device']}, image mean {r['image_mean']:.6f}, "
+              f"launches {r['trace_launches']}", flush=True)
+        check(r["backend"] == "nccl", f"rank {rank}: backend {r['backend']}")
+        check(r["trace_launches"].get("trace_bvh8", 0) > 0,
+              f"rank {rank}: no trace launch")
+    check(loss > 0 and grad_l1 > 0, f"dryrun loss {loss}, grad L1 {grad_l1}")
+    return ranks[0]["trace_launches"], {"world": world, "loss": loss,
+                                         "grad_l1": grad_l1, "seconds": secs}
+
+
+def fog_gradient_path():
+    """Phase 26, the fog scene's gradient pass: phase 21's loss and leaves
+    at 48 x 36, depth 5, card against CPU within phase 21's bars; the
+    forward's launches a chunk those of phase 19's path, none in the
+    backward. Returns (launches, seconds of the card's pass)."""
+    from goblin_tpu_torch.ops import trace as tt
+    from goblin_tpu_torch.scene.loader import load_scene
+
+    got = {}
+    for device in ("cpu", "cuda"):
+        scene, meta = load_scene(FOG, GRAD_SETTINGS, device=device)
+        small_film(meta)
+        tt.reset_launches()
+        _, got[device], stats = grad_pass(scene, meta)
+        counts = dict(tt.launches)
+    want = (studio_launches_per_chunk(meta.settings["max_ray_depth"])
+            + medium_launches_per_chunk(meta))
+    print(f"  fog gradient pass 48x36 depth 5 on the card: "
+          f"{stats['seconds']:.4f} s, launches a chunk forward "
+          f"{stats['forward_launches']} (expected {want}) backward "
+          f"{stats['backward_launches']}", flush=True)
+    check(stats["forward_launches"] == [want]
+          and stats["backward_launches"] == [0]
+          and counts == no_launches(trace_bvh8=want),
+          f"fog gradient pass launches {counts} {stats}")
+    grads_agree(got["cuda"], got["cpu"], "fog 48x36 card vs CPU")
+    return counts, stats["seconds"]
+
+
 def run():
     import torch
 
@@ -2492,6 +2618,16 @@ def run():
           "trace) at 512 x 384:", flush=True)
     bench_counts, bench_s = bench_path()
 
+    print("[26] the entry points: entry() and dryrun_multichip on the "
+          "card; the fog scene's gradients, card vs CPU:", flush=True)
+    t26 = time.perf_counter()
+    entry_counts, entry_numbers = entry_path()
+    dryrun_counts, dryrun_numbers = dryrun_path()
+    fog_grad_counts, fog_grad_s = fog_gradient_path()
+    entry_numbers["phase_26_s"] = time.perf_counter() - t26
+    print(f"  phase 26: {entry_numbers['phase_26_s']:.1f} s; {smi}",
+          flush=True)
+
     print(f"  clocks.sm, power.draw, temperature: "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
     # every row's ms / plain_ms: the full-frame primary closest-hit launch
@@ -2537,6 +2673,10 @@ def run():
                for k, v in regen_scene_counts.items()},
             **sharded_counts,
             **{k: v for k, v in bench_counts.items() if "trace_bvh8" in v},
+            f"entry() fn, a call of {ENTRY_BATCHES[-1]} ids": entry_counts,
+            f"dryrun_multichip({dryrun_numbers['world']}), rank 0":
+                dryrun_counts,
+            "fog gradient pass 48x36": fog_grad_counts,
         },
         "trace_bvh2": {"bunny sppm": sppm_counts[1],
                        "bunny gradient pass": grad_counts[1],
@@ -2598,7 +2738,11 @@ def run():
                       "regenerative driver, other scenes at width 8":
                           regen_scene_numbers,
                       "sharded steps": sharded_numbers,
-                      "phase 25 (the measuring programs)": bench_s}
+                      "phase 25 (the measuring programs)": bench_s,
+                      "phase 26 entry()": entry_numbers,
+                      "phase 26 dryrun_multichip": dryrun_numbers,
+                      "phase 26 fog gradient pass 48x36 on the card":
+                          fog_grad_s}
     row["edge_gradient_card_vs_cpu_rel"] = edge_rel
     # no render path runs the stats instance: its row counts phase 7's census
     stats_row["launches"] = stats_launches

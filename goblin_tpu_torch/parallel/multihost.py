@@ -75,12 +75,13 @@ def free_port() -> int:
 
 
 def launch_local(n_procs: int, argv: list[str], port: int = 7723,
-                 env_extra=None, timeout: float = 1200):
-    """Run n_procs local processes of `python argv...`, rank i with the
-    GOBLIN_* variables of a group on localhost:port -> [(returncode,
-    output)] in rank order, stdout and stderr together. If they have not
-    all ended timeout seconds after the start, every one still running is
-    killed and subprocess.TimeoutExpired is raised."""
+                 env_extra=None, timeout: float = 1200, cwd=None):
+    """Run n_procs local processes of `python argv...` in the directory cwd
+    (this one by default), rank i with the GOBLIN_* variables of a group on
+    localhost:port -> [(returncode, output)] in rank order, stdout and
+    stderr together. If they have not all ended timeout seconds after the
+    start, every one still running is killed and subprocess.TimeoutExpired
+    is raised."""
     procs = []
     try:
         for rank in range(n_procs):
@@ -90,7 +91,7 @@ def launch_local(n_procs: int, argv: list[str], port: int = 7723,
                        GOBLIN_NUM_PROCS=str(n_procs),
                        GOBLIN_PROC_ID=str(rank))
             procs.append(subprocess.Popen(
-                [sys.executable] + list(argv), env=env,
+                [sys.executable] + list(argv), env=env, cwd=cwd,
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
         deadline = time.monotonic() + timeout
         results = []

@@ -138,8 +138,9 @@ def test_port_imports_neither_jax_nor_goblin_tpu(tmp_path):
     map) under bdpt and the smoke scene (a heterogeneous volume and
     subsurface materials), takes a train step and an edge-sampled boundary
     gradient, renders by the regenerative driver and by a one-process
-    sharded pass, calls the rest of core/ and the sphere mesh, and never
-    imports jax or goblin_tpu."""
+    sharded pass, calls the rest of core/ and the sphere mesh and the
+    entry() of goblin_tpu_torch.entry, and never imports jax or
+    goblin_tpu."""
     scene = _two_triangle_scene(tmp_path)
     script = textwrap.dedent(f"""
         import dataclasses, sys
@@ -222,6 +223,10 @@ def test_port_imports_neither_jax_nor_goblin_tpu(tmp_path):
         assert sampling.primes(3) == [2, 3, 5]
         sphere = gmesh.make_sphere_mesh(1.0, 4, 8)
         assert sphere.num_faces == 48
+        from goblin_tpu_torch.entry import entry
+        fn, (ids, s_idx) = entry(device="cpu")
+        L = fn(ids[:64], s_idx)
+        assert tuple(L.shape) == (64, 3) and bool(L.isfinite().all())
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "goblin_tpu" or m.startswith("goblin_tpu.")]
         assert not bad, bad
