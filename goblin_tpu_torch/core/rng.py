@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry
+
 _MASK32 = 0xFFFFFFFF
 
 
@@ -43,8 +45,11 @@ def _mix(a, b):
 def hash_uniform(seed, pixel, sample, bounce, dim) -> torch.Tensor:
     """[0, 1) float32 from integer coordinates: ints or broadcastable
     integer tensors, with pixel a tensor."""
-    h = _mix((_u32(seed) + 0x1234567) & _MASK32, _u32(pixel))
-    h = _mix(h, _u32(sample))
-    h = _mix(h, (_mul32(_u32(bounce), 0x01000193) + _u32(dim)) & _MASK32)
-    # top 24 bits -> [0, 1) with full mantissa coverage
-    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    telemetry.count("rng.hash_calls")
+    with telemetry.span("rng.hash"):
+        h = _mix((_u32(seed) + 0x1234567) & _MASK32, _u32(pixel))
+        h = _mix(h, _u32(sample))
+        h = _mix(h, (_mul32(_u32(bounce), 0x01000193) + _u32(dim))
+                 & _MASK32)
+        # top 24 bits -> [0, 1) with full mantissa coverage
+        return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))

@@ -13,6 +13,7 @@ import math
 
 import torch
 
+from .. import telemetry
 from ..camera import film as film_mod
 from ..core.rng import hash_uniform
 
@@ -86,6 +87,7 @@ def crop_pixel_ids(spec, device):
     return (rows[:, None] * spec.x_res + cols[None, :]).reshape(-1)
 
 
+@telemetry.spanned("render.splat")
 def splat_pass(spec, color, weight, seed, pixel_ids, s_idx: int, n_grid, L):
     """Splat one full-frame stratified pass L (n, 3) of the crop's pixel ids
     (row-major) densely into the film, in place."""
@@ -113,17 +115,21 @@ def make_render_pass(scene, meta, li_fn, spp, seed, chunk_size=1 << 16):
     n_pix = pixel_ids.numel()
 
     def render_pass(color, weight, s_idx: int):
-        L = torch.empty((n_pix, 3), dtype=torch.float32, device=dev)
-        for c0 in range(0, n_pix, chunk_size):
-            pix = pixel_ids[c0:c0 + chunk_size]
-            ray = camera_rays(meta.camera, seed, pix, s_idx, n_grid)
-            L[c0:c0 + pix.numel()] = li_fn(scene, meta, ray, pix, s_idx, seed)
-        return splat_pass(spec, color, weight, seed, pixel_ids, s_idx, n_grid,
-                          L)
+        telemetry.count("render.samples", n_pix)
+        with telemetry.once("setup.first_pass"), telemetry.span("render.pass"):
+            L = torch.empty((n_pix, 3), dtype=torch.float32, device=dev)
+            for c0 in range(0, n_pix, chunk_size):
+                pix = pixel_ids[c0:c0 + chunk_size]
+                ray = camera_rays(meta.camera, seed, pix, s_idx, n_grid)
+                L[c0:c0 + pix.numel()] = li_fn(scene, meta, ray, pix, s_idx,
+                                               seed)
+            return splat_pass(spec, color, weight, seed, pixel_ids, s_idx,
+                              n_grid, L)
 
     return render_pass, n_grid * n_grid
 
 
+@telemetry.spanned("render.camera")
 def camera_rays(cam, seed, pixel_ids, s_idx, n_grid):
     """The camera rays of sample s_idx (an int or a tensor a lane) of
     pixel_ids: stratified-jittered image coords, and the lens samples of a

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry
 from ..core import vecmath as vm
 from ..core.rng import hash_uniform
 from ..core.sampling import power_heuristic
@@ -102,6 +103,7 @@ def make_li(meta, max_depth=None, with_stats=False):
             L = L + subsurface_L(scene, meta, frag, frag["hit"], pixel_ids,
                                  s_idx, seed)
 
+        @telemetry.spanned("pt.bounce")
         def bounce(state, b, trace_cont=True):
             L, throughput, frag, active = state
             p, ns, wo, eps = frag["p"], frag["ns"], frag["wo"], frag["eps"]

@@ -43,6 +43,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import telemetry
+
 WIDTH = 8
 WIDTHS = (4, 8)  # of the collapsed trees
 # Collapsed nodes on the longest root-to-leaf path that a walk can hold: the
@@ -382,7 +384,8 @@ def build_kernels() -> dict:
 
 @functools.cache
 def _kernel_lib(name: str):
-    lib = ctypes.CDLL(build_kernel(name)[0])
+    with telemetry.cold("setup.trace_library"):
+        lib = ctypes.CDLL(build_kernel(name)[0])
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     # tables, rays, n_rays, any_hit, [n_staged,] outputs, overflow, counter,
     # [stats,] stream

@@ -30,6 +30,7 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import telemetry
 from ..camera import film as film_mod
 from ..integrators import common
 
@@ -193,16 +194,19 @@ def make_sharded_render_pass(scene, meta, li_fn, mesh: Mesh, spp, seed,
     mine = mesh.share(chunk_size)
 
     def render_pass(color, weight, s_idx: int):
-        L_mine = torch.stack([
-            li_fn(scene_sh, meta,
-                  common.camera_rays(meta.camera, seed, pix, s_idx, n_grid),
-                  pix, s_idx, seed)
-            for pix in ids[:, mine]])  # (n_chunks, share, 3)
-        # (world, n_chunks, share, 3) -> chunk-major, then each chunk's
-        # ranks in order: the pass's L in pixel order
-        L = mesh.all_gather(L_mine).transpose(0, 1).reshape(-1, 3)
-        return common.splat_pass(spec, color, weight, seed, ids_rm, s_idx,
-                                 n_grid, L[:n_pix])
+        telemetry.count("render.samples", n_pix)
+        with telemetry.once("setup.first_pass"), telemetry.span("render.pass"):
+            L_mine = torch.stack([
+                li_fn(scene_sh, meta,
+                      common.camera_rays(meta.camera, seed, pix, s_idx,
+                                         n_grid),
+                      pix, s_idx, seed)
+                for pix in ids[:, mine]])  # (n_chunks, share, 3)
+            # (world, n_chunks, share, 3) -> chunk-major, then each chunk's
+            # ranks in order: the pass's L in pixel order
+            L = mesh.all_gather(L_mine).transpose(0, 1).reshape(-1, 3)
+            return common.splat_pass(spec, color, weight, seed, ids_rm, s_idx,
+                                     n_grid, L[:n_pix])
 
     return render_pass, n_grid * n_grid
 

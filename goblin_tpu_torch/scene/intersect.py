@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from .. import telemetry
 from ..core import vecmath as vm
 from ..geometry.intersect import BIG_T, intersect_sphere
 from ..integrators.materials import COL_TYPE, _pick, gather_material
@@ -83,6 +84,7 @@ def _disk_pass(scene, o, d, mint, cur_t):
     return best, best_t
 
 
+@telemetry.spanned("scene.intersect")
 def intersect(scene, meta, o, d, mint, maxt, dxd=None, dyd=None):
     """Closest hit over the scene -> fragment dict.
 
@@ -347,6 +349,7 @@ def occluded(scene, meta, o, d, mint, maxt):
     return occ
 
 
+@telemetry.spanned("scene.occluded")
 def occluded_attenuated(scene, meta, o, d, mint, maxt, max_punch: int = 4):
     """Shadow query with punch-through of null-capable (mask) surfaces,
     which consumes no path depth: a mask surface never occludes, it
