@@ -5,10 +5,10 @@
 
 Phases, each printed on its own lines, and any failure exits non-zero:
   1. card: nvidia-smi's name and power limit, torch's device name;
-  2. build: csrc/trace_bvh8.cu at widths 8 and 4 and csrc/trace_bvh2.cu,
-     one nvcc each, started together (seconds; ptxas's registers, shared
-     memory and stack frame; each kernel's block size, stack levels and
-     shared-memory budget);
+  2. build: csrc/trace_bvh8.cu at widths 8 and 4, csrc/trace_bvh2.cu and
+     csrc/rng_hash.cu, one nvcc each, started together (seconds; ptxas's
+     registers, shared memory and stack frame; each trace kernel's block
+     size, stack levels and shared-memory budget);
   3. kernel vs plain: the BVH8 kernel against its plain PyTorch version on
      the full-frame bunny primary, bounce-1 continuation and bounce-1
      shadow wavefronts, traced in the main path's 65,536-ray chunks, in
@@ -152,6 +152,11 @@ Phases, each printed on its own lines, and any failure exits non-zero:
      card); the fog scene's gradient pass (phase 21's loss and bars) at 48
      x 36, card against CPU, its forward launches a chunk those of phase
      19 and none in the backward.
+ 27. the sample hash's kernel (csrc/rng_hash.cu) against its int64 form on
+     the main path's call (an int sample index, int32 pixel ids) at 16,384,
+     65,536 and 196,608 lanes, bit for bit, each timed beside the int64
+     form; its launches in phase 5 (one a hash call, 92 a pass) and over
+     the whole run, beside the hash's calls (the CPU's calls launch none).
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Each kernel's row carries its time (CUDA events over launches queued behind
 a spinning kernel, so the host's launch rate stays out of it), its plain
@@ -173,8 +178,8 @@ import time
 
 try:
     # the timing and bound of a kernel launch, shared with bench_torch.py
-    from goblin_tpu_torch.bench import (KERNEL_REPS, bound, nvidia_smi,
-                                        table_bytes, time_ms)
+    from goblin_tpu_torch.bench import (KERNEL_REPS, PEAK_BYTES_S, bound,
+                                        nvidia_smi, table_bytes, time_ms)
 except ImportError as e:
     sys.exit(f"chip_smoke: FAILED: goblin_tpu_torch is not beside this "
              f"script: {e}")
@@ -2472,6 +2477,84 @@ def fog_gradient_path():
     return counts, stats["seconds"]
 
 
+# phase 27: timed launches of the hash kernel straight from its entry, a
+# few microseconds of the host each, so all queue behind the spinning kernel
+HASH_REPS = 200
+HASH_LANES = (16_384, 65_536, 196_608)
+
+
+def hash_counts():
+    from goblin_tpu_torch import telemetry
+
+    return {name: telemetry.counters.get(name, 0)
+            for name in ("rng.hash_calls", "rng.hash_launches")}
+
+
+def hash_kernel_path(pt_hash, start_hash):
+    """Phase 27: the hash kernel on the main path's call form at each of
+    HASH_LANES, bit-equal to the int64 form and timed beside it; its bound
+    is the 8 B a lane it must move (a pixel id in, a float out). The
+    kernel's time is its launches' from the library's entry; the host's
+    microseconds a hash_uniform call are beside it. pt_hash is phase 5's
+    (calls, launches), start_hash the counts before phase 3. Returns the
+    kernel table's row."""
+    import torch
+
+    from goblin_tpu_torch.core import rng
+    from goblin_tpu_torch.integrators.common import BOUNCE_CAMERA
+    from goblin_tpu_torch.ops import trace as tt
+
+    entry = tt._kernel_lib("rng_hash").goblin_rng_hash
+    stream = torch.cuda.current_stream().cuda_stream
+
+    row = {"name": "rng_hash", "route": "cuda",
+           "source": "goblin_tpu_torch/csrc/rng_hash.cu",
+           "replaces": "none: goblin_tpu/core/rng.py is jnp arithmetic that "
+                       "XLA fuses", "library_ms": None, "by_lanes": {}}
+    for n in HASH_LANES:
+        pix = torch.arange(n, dtype=torch.int32, device="cuda") * 3 + 11
+        args = (3100001701, pix, 5, BOUNCE_CAMERA, 0)
+        ref = rng.hash_uniform_plain(*args)
+        check(torch.equal(rng.hash_uniform(*args), ref),
+              f"rng_hash: {n} lanes differ from the int64 form")
+        cargs = rng.coord_args(rng.plan_hash(*args))
+        out = torch.empty(n, dtype=torch.float32, device="cuda")
+        ms = time_ms(lambda: entry(n, *cargs, out.data_ptr(), stream),
+                     HASH_REPS)
+        check(torch.equal(out, ref), f"rng_hash: {n} lanes differ from the "
+                                     "int64 form (the entry's launches)")
+        plain_ms = time_ms(lambda: rng.hash_uniform_plain(*args),
+                           KERNEL_REPS)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(HASH_REPS):
+            rng.hash_uniform(*args)
+        host_us = (time.perf_counter() - t) / HASH_REPS * 1e6
+        torch.cuda.synchronize()
+        bound_ms = n * 8 / PEAK_BYTES_S * 1e3
+        row["by_lanes"][n] = {"ms": ms, "plain_ms": plain_ms,
+                              "bound_ms": bound_ms, "bound_by": "bytes",
+                              "roofline_share": bound_ms / ms,
+                              "host_us_a_call": host_us}
+        print(f"  {n} lanes: kernel {ms * 1e3:.2f} us, int64 form "
+              f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.3f} us "
+              f"(bytes); hash_uniform {host_us:.1f} us of the host a call",
+              flush=True)
+    end = hash_counts()
+    calls, launches = pt_hash
+    check(calls == launches == 92 * SETTINGS["sample_per_pixel"],
+          f"rng_hash: phase 5 made {launches} launches of {calls} calls")
+    row["launches_by_path"] = {"bunny path_tracing (phase 5)": launches}
+    row["launches"] = end["rng.hash_launches"] - start_hash[
+        "rng.hash_launches"]
+    row["calls_in_the_run"] = end["rng.hash_calls"] - start_hash[
+        "rng.hash_calls"]
+    print(f"  phase 5: {launches} launches of {calls} calls; the run: "
+          f"{row['launches']} launches of {row['calls_in_the_run']} calls "
+          f"(the CPU's launch none)", flush=True)
+    return row
+
+
 def run():
     import torch
 
@@ -2502,6 +2585,7 @@ def run():
           f"block beside {cfg.node_bytes} B a staged node, budget "
           f"{cfg.budget} B a block", flush=True)
 
+    start_hash = hash_counts()
     print("[3] kernel vs plain, bunny pass-0 wavefronts:", flush=True)
     scene, meta = load_scene(BUNNY, SETTINGS, device="cuda")
     row = compare_kernel(scene, meta)
@@ -2511,7 +2595,11 @@ def run():
     reference_check(PT_CHECK, BUNNY)
 
     print("[5] main path (path tracing):", flush=True)
+    before = hash_counts()
     pt_launches = main_path()
+    after = hash_counts()
+    pt_hash = tuple(after[k] - before[k]
+                    for k in ("rng.hash_calls", "rng.hash_launches"))
 
     print("[6] binary-BVH kernel (width 1) vs plain and vs K1:", flush=True)
     scene8, meta8 = load_scene(BUNNY, SETTINGS, device="cuda")
@@ -2627,6 +2715,9 @@ def run():
     entry_numbers["phase_26_s"] = time.perf_counter() - t26
     print(f"  phase 26: {entry_numbers['phase_26_s']:.1f} s; {smi}",
           flush=True)
+
+    print("[27] the sample hash's kernel vs its int64 form:", flush=True)
+    hash_row = hash_kernel_path(pt_hash, start_hash)
 
     print(f"  clocks.sm, power.draw, temperature: "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -2752,11 +2843,13 @@ def run():
     k2_row["ptxas"] = ptxas["trace_bvh2"].get("production")
     w4_row["ptxas"] = ptxas["trace_bvh4"].get("production")
     w4_row["ptxas_stats"] = ptxas["trace_bvh4"].get("stats")
-    for r in (row, k2_row, stats_row, w4_row):
+    hash_row["ptxas"] = ptxas["rng_hash"].get("production")
+    for r in (row, k2_row, stats_row, w4_row, hash_row):
         check(r["ptxas"] and "registers" in r["ptxas"],
               f"{r['name']}: no ptxas numbers in the build's output")
     print(smi)
-    print(json.dumps({"kernels": [row, k2_row, stats_row, w4_row]}))
+    print(json.dumps({"kernels": [row, k2_row, stats_row, w4_row,
+                                  hash_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

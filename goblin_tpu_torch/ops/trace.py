@@ -69,15 +69,17 @@ _TINY = 1e-30
 _TRI_EPS = 1e-7
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-# kernel name -> CUDA source; each builds into its own library
+# kernel name -> CUDA source; each builds into its own library. Besides the
+# traversals, the sample hash (core/rng.py::hash_uniform) builds here.
 KERNEL_SOURCES = {
     "trace_bvh8": os.path.join(_PKG, "csrc", "trace_bvh8.cu"),
     "trace_bvh4": os.path.join(_PKG, "csrc", "trace_bvh8.cu"),
     "trace_bvh2": os.path.join(_PKG, "csrc", "trace_bvh2.cu"),
+    "rng_hash": os.path.join(_PKG, "csrc", "rng_hash.cu"),
 }
 # what a kernel's build defines besides: the wide source's width
 KERNEL_DEFINES = {"trace_bvh4": ("-DGOBLIN_TRACE_WIDTH=4",)}
-# what both sources include; its bytes enter each library's build key
+# what both traversal sources include; its bytes enter every build key
 KERNEL_HEADERS = (os.path.join(_PKG, "csrc", "trace_common.cuh"),)
 _BUILD_DIR = os.path.join(_PKG, "_build")
 # --fmad=false: no contraction into FMA, so the kernel rounds as eager
@@ -394,10 +396,16 @@ def _kernel_lib(name: str):
         entries = {f"goblin_{name}": head + tail,
                    f"goblin_{name}_stats": head + tail + [ptr],
                    f"goblin_{name}_blocks": [i32, ptr]}
-    else:
+    elif name == "trace_bvh2":
         entries = {"goblin_trace_bvh2": head + [i32] + tail,
                    "goblin_trace_bvh2_blocks": [i32, i32, ptr],
                    "goblin_trace_bvh2_config": [ptr]}
+    else:
+        # n, (kind, array, value) for each of seed, pixel, sample, bounce
+        # and dim, out, stream
+        coord = [i32, ptr, ctypes.c_uint32]
+        entries = {"goblin_rng_hash": [ctypes.c_int64] + coord * 5
+                   + [ptr, ptr]}
     for entry, argtypes in entries.items():
         getattr(lib, entry).argtypes = argtypes
         getattr(lib, entry).restype = i32
