@@ -690,10 +690,13 @@ def compare_stats(scene8, meta8):
 
 def sppm_main_path():
     """Phase 8: bunny.json as shipped (SPPM) through render_context at
-    trace width 1 and 8, in turns (1, 8, 8, 1). Returns {width: launches}."""
+    trace width 1 and 8, in turns (1, 8, 8, 1): render_sppm steps
+    sppm.make_sppm's iteration, 161 trace launches and one device read a
+    photon chunk's drain (6) an iteration. Returns {width: launches}."""
     import numpy as np
     import torch
 
+    from goblin_tpu_torch import telemetry
     from goblin_tpu_torch.integrators import sppm
     from goblin_tpu_torch.ops import trace as tt
     from goblin_tpu_torch.render import render_context
@@ -729,12 +732,16 @@ def sppm_main_path():
 
             torch.cuda.synchronize()
             tt.reset_launches()
+            reads0 = telemetry.counters.get("sppm.drain_reads", 0)
+            turns0 = telemetry.counters.get("sppm.drain_turns", 0)
             t0 = time.perf_counter()
             img, meta = render_context(BUNNY, ovr, device="cuda",
                                        report=report, trace_wide=wide)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             launches = dict(tt.launches)
+            reads = telemetry.counters["sppm.drain_reads"] - reads0
+            turns = telemetry.counters["sppm.drain_turns"] - turns0
             img = img.cpu().numpy()
             max_len = meta.settings["max_ray_depth"]
             spec = meta.camera.film
@@ -754,6 +761,8 @@ def sppm_main_path():
                   f"total {t1 - t0:.2f} s with the load; launches {launches} "
                   f"(expected {per_it} per iteration: 1 + 2 x {max_len} ray "
                   f"pass + {n_chunks} chunks x {max_len} photon bounces); "
+                  f"device reads {reads} ({n_chunks} an iteration expected), "
+                  f"drain turns {turns}; "
                   f"image mean {img.mean():.6f} max {img.max():.4f}",
                   flush=True)
             check(img.shape == (384, 512, 3), f"image shape {img.shape}")
@@ -761,6 +770,9 @@ def sppm_main_path():
             check(img.mean() > 0, f"width {wide}: image is black")
             check(launches == want, f"width {wide}: launches {launches}, "
                                     f"expected {want}")
+            check(reads == n_chunks * SPPM_ITERATIONS,
+                  f"width {wide}: {reads} drain reads, expected "
+                  f"{n_chunks * SPPM_ITERATIONS}")
             images[wide], counts[wide] = img, launches
     finally:
         sppm.make_ray_pass = make_ray_pass

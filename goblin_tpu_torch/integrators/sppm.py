@@ -15,6 +15,10 @@ Per iteration (reference src/GoblinSPPM.cpp):
 Final: L = Ld / iterations + Tau / (N_emitted * pi * R^2) (:586-600),
 splatted at the pixel centres.
 
+make_sppm splits a render into its parts: a state (per-pixel progress and
+the photons emitted), one iteration on it, and the film that a state
+resolves to; render_sppm is a loop over them.
+
 Camera-path dimensions use qmc_uniform: prime-base radical inverses of the
 iteration index with a per-pixel Cranley-Patterson rotation, bit-equal to
 goblin_tpu's. Each bounce traces the whole frame at once; the photon pass
@@ -26,10 +30,12 @@ drain.
 from __future__ import annotations
 
 import math
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..camera import film as film_mod
 from ..core import vecmath as vm
 from ..core.rng import _mul32, _u32, hash_uniform
@@ -93,11 +99,12 @@ def make_ray_pass(scene, meta, seed, max_len, n_grid):
     def ray_pass(pixel_ids, it: int):
         R = pixel_ids.shape[0]
         dev = pixel_ids.device
-        x, y = pixel_samples(seed, pixel_ids, spec.x_res,
-                             it % (n_grid * n_grid), n_grid)
-        # no lens samples: a thin-lens camera renders as a pinhole here,
-        # as in goblin_tpu's SPPM
-        ray = cam.generate_ray(x, y)
+        with telemetry.span("render.camera"):
+            x, y = pixel_samples(seed, pixel_ids, spec.x_res,
+                                 it % (n_grid * n_grid), n_grid)
+            # no lens samples: a thin-lens camera renders as a pinhole
+            # here, as in goblin_tpu's SPPM
+            ray = cam.generate_ray(x, y)
         frag = scn.intersect(scene, meta, ray["o"], ray["d"], ray["mint"],
                              ray["maxt"])
         Ld = torch.where(frag["hit"][:, None],
@@ -119,87 +126,137 @@ def make_ray_pass(scene, meta, seed, max_len, n_grid):
             return qmc_uniform(seed, pixel_ids, h_tab[b][k], k, salt=b)
 
         for b in range(max_len):
-            # dim 0 picks a mask material's lobe; dims 2-3 sample an area
-            # light: neither is drawn where the scene has no use for it
-            mat = gather_material(
-                scene, meta, frag,
-                u_mask=qmc(b, 0) if meta.has_null else None)
-            ns, wo, p, eps = frag["ns"], frag["wo"], frag["p"], frag["eps"]
-            path_len = b + 1
+            with telemetry.span("sppm.ray"):
+                # dim 0 picks a mask material's lobe; dims 2-3 sample an
+                # area light: neither is drawn where the scene has no use
+                # for it
+                mat = gather_material(
+                    scene, meta, frag,
+                    u_mask=qmc(b, 0) if meta.has_null else None)
+                ns, wo, p = frag["ns"], frag["wo"], frag["p"]
+                eps = frag["eps"]
+                path_len = b + 1
 
-            # NEE: one light pick; the continuation sample is the MIS
-            # partner, as in the path tracer
-            if meta.n_lights > 0:
-                lid, pick_pdf = lt.pick_light(lights, qmc(b, 1))
-                u1 = u2 = None
-                if not meta.all_delta_lights:
-                    u1, u2 = qmc(b, 2), qmc(b, 3)
-                ls = lt.sample_li(lights, tri_data, lid, p, eps, u1, u2)
-                f_l = bx.bsdf_eval(mat, ns, wo, ls["wi"], bx.BSDF_ALL)
-                consider = (active & (ls["pdf"] > 0.0)
-                            & (ls["Li"] > 0.0).any(dim=-1)
-                            & (f_l > 0.0).any(dim=-1))
-                # lanes not considered skip the traversal
-                occ = scn.occluded(scene, meta, p, ls["wi"],
-                                   torch.where(consider, eps, _BIG_T),
-                                   torch.where(consider, ls["shadow_maxt"], 0.0))
-                vis = consider & ~occ
-                pdf_b_l = bx.bsdf_pdf(mat, ns, wo, ls["wi"], bx.BSDF_ALL)
-                w_l = torch.where(ls["is_delta"], 1.0,
-                                  power_heuristic(1.0, ls["pdf"], 1.0, pdf_b_l))
-                nee = torch.where(
-                    vis[:, None],
-                    f_l * ls["Li"] * (vm.absdot(ns, ls["wi"]) * w_l
-                                      / torch.clamp(ls["pdf"], min=1e-20))[:, None],
-                    0.0,
-                )
+                # NEE: one light pick; the continuation sample is the MIS
+                # partner, as in the path tracer
+                if meta.n_lights > 0:
+                    lid, pick_pdf = lt.pick_light(lights, qmc(b, 1))
+                    u1 = u2 = None
+                    if not meta.all_delta_lights:
+                        u1, u2 = qmc(b, 2), qmc(b, 3)
+                    ls = lt.sample_li(lights, tri_data, lid, p, eps, u1, u2)
+                    f_l = bx.bsdf_eval(mat, ns, wo, ls["wi"], bx.BSDF_ALL)
+                    consider = (active & (ls["pdf"] > 0.0)
+                                & (ls["Li"] > 0.0).any(dim=-1)
+                                & (f_l > 0.0).any(dim=-1))
+                    # lanes not considered skip the traversal
+                    occ = scn.occluded(
+                        scene, meta, p, ls["wi"],
+                        torch.where(consider, eps, _BIG_T),
+                        torch.where(consider, ls["shadow_maxt"], 0.0))
+                    vis = consider & ~occ
+                    pdf_b_l = bx.bsdf_pdf(mat, ns, wo, ls["wi"],
+                                          bx.BSDF_ALL)
+                    w_l = torch.where(
+                        ls["is_delta"], 1.0,
+                        power_heuristic(1.0, ls["pdf"], 1.0, pdf_b_l))
+                    nee = torch.where(
+                        vis[:, None],
+                        f_l * ls["Li"] * (
+                            vm.absdot(ns, ls["wi"]) * w_l
+                            / torch.clamp(ls["pdf"], min=1e-20))[:, None],
+                        0.0,
+                    )
 
-            # continuation sample (also the BSDF side of the MIS)
-            bs = bx.bsdf_sample(mat, ns, frag["dpdu"], wo, qmc(b, 4), qmc(b, 5),
-                                qmc(b, 6), bx.BSDF_ALL)
-            cont_ok = active & bs["valid"] & (bs["f"] > 0.0).any(dim=-1)
-            frag2 = scn.intersect(scene, meta, p, bs["wi"],
-                                  torch.where(cont_ok, eps, _BIG_T),
-                                  torch.where(cont_ok, 3.0e37, 0.0))
-            if meta.n_lights > 0:
-                cos_l = vm.dot(frag2["ns"], -bs["wi"])
-                pdf_l_b = lt.pdf_li(lights, lid, p, bs["wi"], frag2["t"],
-                                    cos_l, frag2["light"])
-                w_b = torch.where(bs["is_specular"] | bs["is_null"], 1.0,
-                                  power_heuristic(1.0, bs["pdf"], 1.0, pdf_l_b))
-                le2 = _area_light_Le(scene, frag2, -bs["wi"])
-                hit_picked = frag2["hit"] & (frag2["light"] == lid)
-                nee = nee + torch.where(
-                    (cont_ok & hit_picked)[:, None],
-                    bs["f"] * le2 * (vm.absdot(bs["wi"], ns) * w_b
-                                     / torch.clamp(bs["pdf"], min=1e-20))[:, None],
-                    0.0,
-                )
-                Ld = Ld + torch.where(
-                    active[:, None],
-                    tp * nee / torch.clamp(pick_pdf, min=1e-20)[:, None], 0.0)
+                # continuation sample (also the BSDF side of the MIS)
+                bs = bx.bsdf_sample(mat, ns, frag["dpdu"], wo, qmc(b, 4),
+                                    qmc(b, 5), qmc(b, 6), bx.BSDF_ALL)
+                cont_ok = active & bs["valid"] & (bs["f"] > 0.0).any(dim=-1)
+                frag2 = scn.intersect(scene, meta, p, bs["wi"],
+                                      torch.where(cont_ok, eps, _BIG_T),
+                                      torch.where(cont_ok, 3.0e37, 0.0))
+                if meta.n_lights > 0:
+                    cos_l = vm.dot(frag2["ns"], -bs["wi"])
+                    pdf_l_b = lt.pdf_li(lights, lid, p, bs["wi"], frag2["t"],
+                                        cos_l, frag2["light"])
+                    w_b = torch.where(
+                        bs["is_specular"] | bs["is_null"], 1.0,
+                        power_heuristic(1.0, bs["pdf"], 1.0, pdf_l_b))
+                    le2 = _area_light_Le(scene, frag2, -bs["wi"])
+                    hit_picked = frag2["hit"] & (frag2["light"] == lid)
+                    nee = nee + torch.where(
+                        (cont_ok & hit_picked)[:, None],
+                        bs["f"] * le2 * (
+                            vm.absdot(bs["wi"], ns) * w_b
+                            / torch.clamp(bs["pdf"], min=1e-20))[:, None],
+                        0.0,
+                    )
+                    Ld = Ld + torch.where(
+                        active[:, None],
+                        tp * nee / torch.clamp(pick_pdf, min=1e-20)[:, None],
+                        0.0)
 
-            # stop at a diffuse vertex (record the visible point) or go on
-            is_diffuse = (bx.lobe_of(mat["mtype"]) & bx.BSDF_DIFFUSE) != 0
-            record = active if path_len == max_len - 1 else active & is_diffuse
-            rec = record[:, None]
-            for k, src in (("p", p), ("ns", ns), ("dpdu", frag["dpdu"]),
-                           ("wo", wo), ("uv", frag["uv"]), ("tp", tp)):
-                vp[k] = torch.where(rec, src, vp[k])
-            vp["mat"] = torch.where(record, frag["mat"], vp["mat"])
-            vp["len"] = torch.where(record, path_len, vp["len"])
-            vp["valid"] = vp["valid"] | record
+                # stop at a diffuse vertex (record the visible point) or go
+                # on
+                is_diffuse = (bx.lobe_of(mat["mtype"]) & bx.BSDF_DIFFUSE) != 0
+                record = (active if path_len == max_len - 1
+                          else active & is_diffuse)
+                rec = record[:, None]
+                for k, src in (("p", p), ("ns", ns), ("dpdu", frag["dpdu"]),
+                               ("wo", wo), ("uv", frag["uv"]), ("tp", tp)):
+                    vp[k] = torch.where(rec, src, vp[k])
+                vp["mat"] = torch.where(record, frag["mat"], vp["mat"])
+                vp["len"] = torch.where(record, path_len, vp["len"])
+                vp["valid"] = vp["valid"] | record
 
-            tp2 = tp * bs["f"] * (vm.absdot(bs["wi"], ns)
-                                  / torch.clamp(bs["pdf"], min=1e-20))[:, None]
-            active = active & ~record & cont_ok & frag2["hit"]
-            tp = torch.where(active[:, None], tp2, tp)
-            frag = {k: torch.where(active.reshape((R,) + (1,) * (v.ndim - 1)),
-                                   frag2[k], v)
+                tp2 = tp * bs["f"] * (
+                    vm.absdot(bs["wi"], ns)
+                    / torch.clamp(bs["pdf"], min=1e-20))[:, None]
+                active = active & ~record & cont_ok & frag2["hit"]
+                tp = torch.where(active[:, None], tp2, tp)
+                frag = {k: torch.where(
+                    active.reshape((R,) + (1,) * (v.ndim - 1)), frag2[k], v)
                     for k, v in frag.items()}
         return Ld, vp
 
     return ray_pass
+
+
+def _grid_entries(rows, valid, bbox_min, inv_len, max_r, n_pix):
+    """The grid's entries of a chunk's deposits rows (N, 10), valid (N,):
+    each deposit in the <= 8 cells its +-max_r cube overlaps (clamp-deduped)
+    -> (entry_hash (8N,) sorted, entry_idx (8N,) into rows)."""
+    dp = rows[:, 0:3]
+    lo = torch.floor((dp - max_r - bbox_min) * inv_len).to(torch.int32)
+    hi = torch.floor((dp + max_r - bbox_min) * inv_len).to(torch.int32)
+    idx = torch.arange(rows.shape[0], dtype=torch.int32, device=rows.device)
+    hashes, seen = [], []
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                cx = torch.minimum(lo[:, 0] + dx, hi[:, 0])
+                cy = torch.minimum(lo[:, 1] + dy, hi[:, 1])
+                cz = torch.minimum(lo[:, 2] + dz, hi[:, 2])
+                dup = torch.zeros_like(valid)
+                for px, py, pz in seen:
+                    dup = dup | ((cx == px) & (cy == py) & (cz == pz))
+                seen.append((cx, cy, cz))
+                hashes.append(torch.where(valid & ~dup,
+                                          _hash_cells(cx, cy, cz, n_pix),
+                                          0x7FFFFFFF))
+    entry_hash = torch.cat(hashes)
+    entry_idx = idx.repeat(8)
+    entry_hash, order = torch.sort(entry_hash, stable=True)
+    return entry_hash, entry_idx[order]
+
+
+def _drain_turns(start, end, n_entries):
+    """The turns of goblin_tpu's drain loop (while any lane has start + k <
+    end): the fullest cell's entries, read from the device once a drain."""
+    n_turns = min(int((end - start).max()), n_entries)
+    telemetry.count("sppm.drain_reads")
+    telemetry.count("sppm.drain_turns", n_turns)
+    return n_turns
 
 
 def make_photon_passes(scene, meta, seed, max_len, n_pix):
@@ -221,63 +278,46 @@ def make_photon_passes(scene, meta, seed, max_len, n_pix):
     lights = scene["lights"]
 
     def deposit_chunk(photon_ids, it, bbox_min, inv_len, max_r):
-        em, verts = walk_light_paths(scene, meta, photon_ids, it, seed,
-                                     max_len + 1, mode=bx.MODE_RADIANCE)
-        le_scale = lt.eval_emission(lights, em["lid"], em["n"], em["dir"],
-                                    env_le=_env_le_at(scene, meta, em["dir"]))
-        rows, valid = [], []
-        # deposits only for path length > 1 (vertex d has length d + 1):
-        # direct light is the ray pass's NEE
-        for d in range(1, verts["p"].shape[0]):
-            wgt = verts["tp"][d] * le_scale
-            rows.append(torch.cat([
-                verts["p"][d], verts["wo_prev"][d], wgt,
-                torch.full_like(wgt[:, :1], float(d + 1)),
-            ], dim=-1))
-            valid.append(verts["valid"][d])
-        rows = torch.cat(rows)  # (N, 10)
-        valid = torch.cat(valid)
-        dp = rows[:, 0:3]
-        lo = torch.floor((dp - max_r - bbox_min) * inv_len).to(torch.int32)
-        hi = torch.floor((dp + max_r - bbox_min) * inv_len).to(torch.int32)
-        idx = torch.arange(rows.shape[0], dtype=torch.int32, device=rows.device)
-        hashes, seen = [], []
-        for dz in (0, 1):
-            for dy in (0, 1):
-                for dx in (0, 1):
-                    cx = torch.minimum(lo[:, 0] + dx, hi[:, 0])
-                    cy = torch.minimum(lo[:, 1] + dy, hi[:, 1])
-                    cz = torch.minimum(lo[:, 2] + dz, hi[:, 2])
-                    dup = torch.zeros_like(valid)
-                    for px, py, pz in seen:
-                        dup = dup | ((cx == px) & (cy == py) & (cz == pz))
-                    seen.append((cx, cy, cz))
-                    hashes.append(torch.where(valid & ~dup,
-                                              _hash_cells(cx, cy, cz, n_pix),
-                                              0x7FFFFFFF))
-        entry_hash = torch.cat(hashes)
-        entry_idx = idx.repeat(8)
-        entry_hash, order = torch.sort(entry_hash, stable=True)
-        return rows, entry_hash, entry_idx[order]
+        telemetry.count("sppm.photons", photon_ids.shape[0])
+        with telemetry.span("sppm.photon"):
+            em, verts = walk_light_paths(scene, meta, photon_ids, it, seed,
+                                         max_len + 1, mode=bx.MODE_RADIANCE)
+            le_scale = lt.eval_emission(
+                lights, em["lid"], em["n"], em["dir"],
+                env_le=_env_le_at(scene, meta, em["dir"]))
+            rows, valid = [], []
+            # deposits only for path length > 1 (vertex d has length
+            # d + 1): direct light is the ray pass's NEE
+            for d in range(1, verts["p"].shape[0]):
+                wgt = verts["tp"][d] * le_scale
+                rows.append(torch.cat([
+                    verts["p"][d], verts["wo_prev"][d], wgt,
+                    torch.full_like(wgt[:, :1], float(d + 1)),
+                ], dim=-1))
+                valid.append(verts["valid"][d])
+            rows = torch.cat(rows)  # (N, 10)
+            valid = torch.cat(valid)
+        with telemetry.span("sppm.grid"):
+            return rows, *_grid_entries(rows, valid, bbox_min, inv_len,
+                                        max_r, n_pix)
 
+    @telemetry.spanned("sppm.drain")
     def vp_drain(vp, radius, rows, entry_hash, entry_idx, bbox_min, inv_len,
                  Phi, Mi):
         p = vp["p"]
         E = entry_hash.shape[0]
-        c = torch.floor((p - bbox_min) * inv_len).to(torch.int32)
-        h = _hash_cells(c[:, 0], c[:, 1], c[:, 2], n_pix)
-        start = torch.searchsorted(entry_hash, h)
-        end = torch.searchsorted(entry_hash, h, right=True)
-        end = torch.where(vp["valid"], end, start)
+        with telemetry.span("sppm.grid"):
+            c = torch.floor((p - bbox_min) * inv_len).to(torch.int32)
+            h = _hash_cells(c[:, 0], c[:, 1], c[:, 2], n_pix)
+            start = torch.searchsorted(entry_hash, h)
+            end = torch.searchsorted(entry_hash, h, right=True)
+            end = torch.where(vp["valid"], end, start)
         # per visible point, loop invariant
         mat_v = gather_material(scene, meta, {"mat": vp["mat"], "uv": vp["uv"]})
         ns, wo = vp["ns"], vp["wo"]
         r2 = radius * radius
         budget = float(max_len) - vp["len"].to(torch.float32)
-        # the turns of goblin_tpu's while loop (any lane with start + k <
-        # end), counted with one read: the fullest cell's entries
-        n_turns = min(int((end - start).max()), E)
-        for k in range(n_turns):
+        for k in range(_drain_turns(start, end, E)):
             row = rows[entry_idx[torch.clamp(start + k, max=E - 1)].long()]
             dp, wi, wgt, plen = row[:, 0:3], row[:, 3:6], row[:, 6:9], row[:, 9]
             ok = ((start + k < end) & (vm.squared_length(dp - p) <= r2)
@@ -313,15 +353,21 @@ def load_sppm_state(path):
         return {k: z[k] for k in z.files}
 
 
-def render_sppm(scene, meta, chunk_size=PHOTON_CHUNK, iterations=None,
-                seed=None,
-                state=None, return_state=False, report=None):
-    """Render SPPM -> image (H, W, 3) on the scene's device, or (image,
-    state) with return_state. state (from return_state, possibly through
-    save_sppm_state / load_sppm_state) resumes at its iteration with the
-    same per-iteration streams, bit-identical to an uninterrupted run.
-    chunk_size: photons per deposit chunk; report(done, total) is called
-    after each iteration."""
+class SPPM(NamedTuple):
+    """One SPPM render's parts (make_sppm). A state is the dict that
+    render_sppm(return_state=True) returns: per-pixel Ld_acc, Ni, Tau and
+    radius, the photons emitted so far, and `it`, the next iteration."""
+    new_state: Callable  # (state=None) -> a fresh state, or state resumed
+    iterate: Callable  # (state, it) -> state, iteration it added in place
+    film: Callable  # (state, iterations) -> (color, weight) of the film
+
+
+def make_sppm(scene, meta, chunk_size=PHOTON_CHUNK, iterations=None,
+              seed=None):
+    """-> SPPM for the scene: iteration it's streams are a pure function of
+    (seed, it), so a state can take iterations in any order and resume
+    anywhere. iterations (default: the scene's sample_per_pixel) sets the
+    camera's stratification; chunk_size: photons per deposit chunk."""
     spec = meta.camera.film
     if iterations is None:
         iterations = int(meta.settings.get("sample_per_pixel", 1))
@@ -339,34 +385,38 @@ def render_sppm(scene, meta, chunk_size=PHOTON_CHUNK, iterations=None,
     ray_pass = make_ray_pass(scene, meta, seed, max_len, spp_grid(iterations))
     deposit_chunk, vp_drain = make_photon_passes(scene, meta, seed + 77,
                                                  max_len, n_pix)
+    # whole chunks; emitted counts every photon traced
+    cs = min(chunk_size, n_pix)
+    n_chunks = (n_pix + cs - 1) // cs
 
-    with torch.inference_mode():
+    def new_state(state=None):
         if state is not None:
-            Ld_acc, Ni, Tau, radius = (
-                torch.as_tensor(state[k], device=dev)
-                for k in ("Ld_acc", "Ni", "Tau", "radius"))
-            emitted = int(state["emitted"])
-            it0 = int(state["it"])
-        else:
-            Ld_acc = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
-            Ni = torch.zeros(n_pix, dtype=torch.float32, device=dev)
-            Tau = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
-            radius = torch.full((n_pix,), init_radius, dtype=torch.float32,
-                                device=dev)
-            emitted = 0
-            it0 = 0
+            out = {k: torch.as_tensor(state[k], device=dev)
+                   for k in ("Ld_acc", "Ni", "Tau", "radius")}
+            out.update(emitted=int(state["emitted"]), it=int(state["it"]))
+            return out
+        return {
+            "Ld_acc": torch.zeros((n_pix, 3), dtype=torch.float32,
+                                  device=dev),
+            "Ni": torch.zeros(n_pix, dtype=torch.float32, device=dev),
+            "Tau": torch.zeros((n_pix, 3), dtype=torch.float32, device=dev),
+            "radius": torch.full((n_pix,), init_radius, dtype=torch.float32,
+                                 device=dev),
+            "emitted": 0, "it": 0}
 
-        for it in range(it0, iterations):
+    def iterate(state, it: int):
+        telemetry.count("render.samples", n_pix)
+        with telemetry.once("setup.first_pass"), \
+                telemetry.span("render.pass"):
             Ld_it, vp = ray_pass(pixel_ids, it)
-            Ld_acc = Ld_acc + Ld_it
-            if it == 0 and init_radius <= 0.0:
+            state["Ld_acc"] = state["Ld_acc"] + Ld_it
+            radius, emitted = state["radius"], state["emitted"]
+            if emitted == 0 and init_radius <= 0.0:
                 radius = _auto_radius(vp, xc, yc).expand(n_pix).clone()
-            bbox_min, inv_len, max_r = vp_cell_meta(vp, radius)
+            with telemetry.span("sppm.grid"):
+                bbox_min, inv_len, max_r = vp_cell_meta(vp, radius)
             Phi = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
             Mi = torch.zeros(n_pix, dtype=torch.float32, device=dev)
-            # whole chunks; emitted counts every photon traced
-            cs = min(chunk_size, n_pix)
-            n_chunks = (n_pix + cs - 1) // cs
             for c in range(n_chunks):
                 ids = torch.arange(emitted + c * cs, emitted + (c + 1) * cs,
                                    dtype=torch.int32, device=dev)
@@ -374,24 +424,51 @@ def render_sppm(scene, meta, chunk_size=PHOTON_CHUNK, iterations=None,
                                                       inv_len, max_r)
                 Phi, Mi = vp_drain(vp, radius, rows_c, e_hash, e_idx,
                                    bbox_min, inv_len, Phi, Mi)
-            emitted += n_chunks * cs
-            Ni, Tau, radius = _update(Ni, Tau, radius, Phi, Mi, vp["tp"],
-                                      vp["valid"])
-            if report is not None:
-                report(it + 1, iterations)
+            with telemetry.span("sppm.update"):
+                state["Ni"], state["Tau"], state["radius"] = _update(
+                    state["Ni"], state["Tau"], radius, Phi, Mi, vp["tp"],
+                    vp["valid"])
+            state["emitted"] = emitted + n_chunks * cs
+            state["it"] = it + 1
+        return state
 
-        L = Ld_acc / max(iterations, 1) + Tau / torch.clamp(
-            emitted * math.pi * (radius * radius)[:, None], min=1e-20)
+    def film(state, iterations: int):
+        radius = state["radius"]
+        L = state["Ld_acc"] / max(iterations, 1) + state["Tau"] / torch.clamp(
+            state["emitted"] * math.pi * (radius * radius)[:, None],
+            min=1e-20)
         # splat with the film filter at the pixel centres
         color, weight = film_mod.new_film(spec, dev)
         px = (pixel_ids % spec.x_res).to(torch.float32) + 0.5
         py = torch.div(pixel_ids, spec.x_res,
                        rounding_mode="floor").to(torch.float32) + 0.5
-        color, weight = film_mod.splat(spec, color, weight, px, py, L)
-        img = film_mod.to_image(color, weight)
+        return film_mod.splat(spec, color, weight, px, py, L)
+
+    return SPPM(new_state, iterate, film)
+
+
+def render_sppm(scene, meta, chunk_size=PHOTON_CHUNK, iterations=None,
+                seed=None,
+                state=None, return_state=False, report=None):
+    """Render SPPM -> image (H, W, 3) on the scene's device, or (image,
+    state) with return_state. state (from return_state, possibly through
+    save_sppm_state / load_sppm_state) resumes at its iteration with the
+    same per-iteration streams, bit-identical to an uninterrupted run.
+    chunk_size: photons per deposit chunk; report(done, total) is called
+    after each iteration."""
+    if iterations is None:
+        iterations = int(meta.settings.get("sample_per_pixel", 1))
+    sppm = make_sppm(scene, meta, chunk_size, iterations, seed)
+    with torch.inference_mode():
+        st = sppm.new_state(state)
+        for it in range(st["it"], iterations):
+            sppm.iterate(st, it)
+            if report is not None:
+                report(it + 1, iterations)
+        img = film_mod.to_image(*sppm.film(st, iterations))
     if return_state:
-        return img, {"Ld_acc": Ld_acc, "Ni": Ni, "Tau": Tau,
-                     "radius": radius, "emitted": emitted, "it": iterations}
+        st["it"] = iterations
+        return img, st
     return img
 
 

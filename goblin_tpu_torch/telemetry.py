@@ -40,6 +40,11 @@ STAGES = {
     "scene.occluded": "intersect",
     "rng.hash": "hash",
     "render.splat": "splat",
+    "sppm.ray": "shade",
+    "sppm.photon": "photon",
+    "sppm.grid": "grid",
+    "sppm.drain": "drain",
+    "sppm.update": "splat",
 }
 
 # name -> count since the process began (or the caller's last clear)

@@ -156,9 +156,11 @@ def test_pass_hash_calls(bunny):
     # skipped with only delta lights
     assert names.count("scene.intersect") == 4 * n_chunks
     assert names.count("render.splat") == 1
-    # every stage took some time of its own
+    # every span of the path tracer's stages took some time of its own
+    # (the sppm.* spans are SPPM's, tests/test_torch_sppm_plainref.py)
     own = telemetry.self_times(telemetry.spans())
-    assert set(telemetry.STAGES) <= set(own)
+    assert {n for n in telemetry.STAGES if not n.startswith("sppm.")} \
+        <= set(own)
 
 
 def test_recording_leaves_the_film_bit_equal(bunny):
