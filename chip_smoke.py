@@ -29,8 +29,9 @@ Phases, each printed on its own lines, and any failure exits non-zero:
   8. bunny.json as shipped (SPPM, 512 x 384, depth 20, initial radius
      0.01) with sample_per_pixel cut from 100 to 4 iterations, through
      render_context at trace width 1 and at 8: finite non-black images
-     that agree, and exactly 1 + 2 x 20 + 6 x 20 = 161 launches per
-     iteration of the width's kernel and none of the other; the widths
+     that agree, and exactly 1 + 2 x 20 + 20 = 61 launches per
+     iteration of the width's kernel (one light walk of the 6 photon
+     chunks) and none of the other; the widths
      render in turns (1, 8, 8, 1), so neither always runs first;
   9. a 48 x 36, 2-iteration, depth-5 SPPM render at width 1 on the card
      against the CPU's;
@@ -48,9 +49,10 @@ Phases, each printed on its own lines, and any failure exits non-zero:
      widths' images agree; a 48 x 36 render at width 4 on the card against
      the CPU's;
  12. the studio scene under SPPM, 512 x 384, depth 5, 2 iterations at
-     width 4: a finite non-black image and 1 + 2 x 5 + 6 x 5 = 41 launches
+     width 4: a finite non-black image and 1 + 2 x 5 + 5 = 16 launches
      an iteration (SPPM's shadow rays take the any-hit query, masks or
-     not); a 48 x 36 render on the card against the CPU's.
+     not; one light walk of the 6 photon chunks); a 48 x 36 render on the
+     card against the CPU's.
  13. examples/bunny_gallery.json (the studio scene under the texture chain:
      a filtered checkerboard over a scale node, an EWA image under the
      spherical mapping, a trilinear alpha image, a bump map and a normal
@@ -691,8 +693,9 @@ def compare_stats(scene8, meta8):
 def sppm_main_path():
     """Phase 8: bunny.json as shipped (SPPM) through render_context at
     trace width 1 and 8, in turns (1, 8, 8, 1): render_sppm steps
-    sppm.make_sppm's iteration, 161 trace launches and one device read a
-    photon chunk's drain (6) an iteration. Returns {width: launches}."""
+    sppm.make_sppm's iteration, 61 trace launches (one light walk of all
+    6 photon chunks) and one device read a photon chunk's drain (6) an
+    iteration. Returns {width: launches}."""
     import numpy as np
     import torch
 
@@ -734,6 +737,7 @@ def sppm_main_path():
             tt.reset_launches()
             reads0 = telemetry.counters.get("sppm.drain_reads", 0)
             turns0 = telemetry.counters.get("sppm.drain_turns", 0)
+            walks0 = telemetry.counters.get("sppm.photon_walks", 0)
             t0 = time.perf_counter()
             img, meta = render_context(BUNNY, ovr, device="cuda",
                                        report=report, trace_wide=wide)
@@ -741,13 +745,16 @@ def sppm_main_path():
             t1 = time.perf_counter()
             launches = dict(tt.launches)
             reads = telemetry.counters["sppm.drain_reads"] - reads0
+            walks = telemetry.counters["sppm.photon_walks"] - walks0
             turns = telemetry.counters["sppm.drain_turns"] - turns0
             img = img.cpu().numpy()
             max_len = meta.settings["max_ray_depth"]
             spec = meta.camera.film
             n_pix = spec.x_res * spec.y_res
             n_chunks = -(-n_pix // sppm.PHOTON_CHUNK)
-            per_it = 1 + 2 * max_len + n_chunks * max_len
+            # one light walk of all the chunks an iteration: the card's
+            # free memory holds it
+            per_it = 1 + 2 * max_len + max_len
             mine = "trace_bvh2" if wide == 1 else "trace_bvh8"
             want = no_launches(**{mine: per_it * SPPM_ITERATIONS})
             its = np.diff([t0] + marks)
@@ -760,8 +767,9 @@ def sppm_main_path():
                   f"and update {' '.join(f'{a - b:.3f}' for a, b in zip(its, ray_s))}); "
                   f"total {t1 - t0:.2f} s with the load; launches {launches} "
                   f"(expected {per_it} per iteration: 1 + 2 x {max_len} ray "
-                  f"pass + {n_chunks} chunks x {max_len} photon bounces); "
-                  f"device reads {reads} ({n_chunks} an iteration expected), "
+                  f"pass + 1 walk of {n_chunks} chunks x {max_len} photon "
+                  f"bounces); walks {walks}, device reads {reads} "
+                  f"({n_chunks} an iteration expected), "
                   f"drain turns {turns}; "
                   f"image mean {img.mean():.6f} max {img.max():.4f}",
                   flush=True)
@@ -770,6 +778,9 @@ def sppm_main_path():
             check(img.mean() > 0, f"width {wide}: image is black")
             check(launches == want, f"width {wide}: launches {launches}, "
                                     f"expected {want}")
+            check(walks == SPPM_ITERATIONS,
+                  f"width {wide}: {walks} photon walks, expected "
+                  f"{SPPM_ITERATIONS}")
             check(reads == n_chunks * SPPM_ITERATIONS,
                   f"width {wide}: {reads} drain reads, expected "
                   f"{n_chunks * SPPM_ITERATIONS}")
@@ -1015,16 +1026,16 @@ def studio_sppm_path(wide=4):
     n_chunks = -(-spec.x_res * spec.y_res // sppm.PHOTON_CHUNK)
     # ray pass: the primary rays, then a bounce's any-hit shadow query (SPPM
     # does not punch through masks) and its continuation; photon pass: a
-    # trace a bounce of each chunk
-    per_it = 1 + 2 * max_len + n_chunks * max_len
+    # trace a bounce of the one light walk of all the chunks
+    per_it = 1 + 2 * max_len + max_len
     its = np.diff([t0] + marks)
     print(f"  width {wide}: {spec.x_res}x{spec.y_res} depth {max_len}, "
           f"initial radius {meta.settings['initial_radius']}; seconds per "
           f"iteration "
           f"{' '.join(f'{s:.3f}' for s in its)} (the first with the load); "
           f"launches {launches} (expected {per_it} per iteration: 1 + 2 x "
-          f"{max_len} ray pass + {n_chunks} chunks x {max_len} photon "
-          f"bounces); image mean {img.mean():.6f} max "
+          f"{max_len} ray pass + 1 walk of {n_chunks} chunks x {max_len} "
+          f"photon bounces); image mean {img.mean():.6f} max "
           f"{img.max():.4f}", flush=True)
     check(img.shape == (384, 512, 3), f"image shape {img.shape}")
     check(np.isfinite(img).all(), "studio SPPM image has non-finite pixels")

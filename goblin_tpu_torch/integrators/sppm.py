@@ -21,10 +21,12 @@ resolves to; render_sppm is a loop over them.
 
 Camera-path dimensions use qmc_uniform: prime-base radical inverses of the
 iteration index with a per-pixel Cranley-Patterson rotation, bit-equal to
-goblin_tpu's. Each bounce traces the whole frame at once; the photon pass
-runs in chunks of photons. The drain is a loop on the host over the
-fullest cell's entries, whose count it reads from the device once a
-drain.
+goblin_tpu's. Each bounce traces the whole frame at once. The light walk
+takes the iteration's photons at once too (walk_lanes: as many whole
+chunks as a share of the card's free memory holds); the grid and the drain
+then run chunk by chunk over the walk's rows. The drain is a loop on the
+host over the fullest cell's entries, whose count it reads from the device
+once a drain.
 """
 
 from __future__ import annotations
@@ -50,6 +52,12 @@ from .path import _area_light_Le, _em_tri_data, _env_le
 ALPHA = 0.7
 PHOTON_CHUNK = 1 << 15  # photons per deposit chunk
 _BIG_T = 3.0e38
+# a light walk's bytes a photon: walk_light_paths holds 82 B of fields a
+# vertex and copies them once more into its stacked result; a deposit row
+# is 10 floats and a valid flag
+_VERTEX_BYTES = 82
+_ROW_BYTES = 41
+WALK_MEMORY_SHARE = 0.25  # of the card's free bytes at make_sppm
 
 # one prime base per (bounce, dim) pair, like the reference PermutedHalton
 # (src/GoblinSampler.cpp:659-748); 64 primes cover 9 bounces of 7 dims
@@ -259,6 +267,55 @@ def _drain_turns(start, end, n_entries):
     return n_turns
 
 
+def walk_lanes(n_pix, cs, max_len, free_bytes):
+    """Photons a light walk takes, a whole number of chunks of cs: all the
+    iteration's chunks (n_pix over cs, rounded up) where the walk's bytes
+    fit WALK_MEMORY_SHARE of free_bytes, else as many chunks as fit, never
+    fewer than one. free_bytes None (the CPU): all the chunks."""
+    n_chunks = -(-n_pix // cs)
+    if free_bytes is None:
+        return n_chunks * cs
+    per_photon = 2 * _VERTEX_BYTES * max_len + _ROW_BYTES * (max_len - 1)
+    fit = int(free_bytes * WALK_MEMORY_SHARE) // (cs * per_photon)
+    return cs * max(1, min(n_chunks, fit))
+
+
+def make_photon_walk(scene, meta, seed, max_len):
+    """-> walk(photon_ids, it) -> (rows (D, N, 10) [p, wi, wgt, path_len],
+    valid (D, N)): each photon's light walk and its deposits at vertices
+    1 .. D = max_len - 1 (vertex d has path length d + 1; direct light is
+    the ray pass's NEE). A photon's streams hash (seed, its id, it), so a
+    walk over any set of ids gives each photon the same rows."""
+    from ..splatting import _env_le_at, walk_light_paths
+
+    lights = scene["lights"]
+
+    def walk(photon_ids, it):
+        telemetry.count("sppm.photons", photon_ids.shape[0])
+        telemetry.count("sppm.photon_walks")
+        with telemetry.span("sppm.photon"):
+            em, verts = walk_light_paths(scene, meta, photon_ids, it, seed,
+                                         max_len + 1, mode=bx.MODE_RADIANCE)
+            le_scale = lt.eval_emission(
+                lights, em["lid"], em["n"], em["dir"],
+                env_le=_env_le_at(scene, meta, em["dir"]))
+            wgt = verts["tp"][1:] * le_scale
+            D, N = wgt.shape[:2]
+            plen = torch.arange(2, D + 2, dtype=torch.float32,
+                                device=wgt.device)
+            rows = torch.cat([verts["p"][1:], verts["wo_prev"][1:], wgt,
+                              plen[:, None, None].expand(D, N, 1)], dim=-1)
+            return rows, verts["valid"][1:]
+
+    return walk
+
+
+def chunk_deposits(rows, valid, lo, hi):
+    """Photons lo .. hi - 1 of a walk's rows, in a chunk's (depth, photon)
+    order -> (rows ((hi - lo) D, 10), valid ((hi - lo) D,))."""
+    return rows[:, lo:hi].reshape(-1, 10), valid[:, lo:hi].reshape(-1)
+
+
 def make_photon_passes(scene, meta, seed, max_len, n_pix):
     """Visible-point-major photon deposit (goblin_tpu's gather form): photon
     deposits are hashed into the grid, each into the <= 8 cells its +-max_r
@@ -269,35 +326,16 @@ def make_photon_passes(scene, meta, seed, max_len, n_pix):
     Returns (deposit_chunk, vp_drain):
       deposit_chunk(photon_ids, it, bbox_min, inv_len, max_r)
         -> (rows (N, 10) [p, wi, wgt, path_len], entry_hash (8N,) sorted,
-            entry_idx (8N,))
+            entry_idx (8N,)): a chunk's walk (make_photon_walk) and grid
       vp_drain(vp, radius, rows, entry_hash, entry_idx, bbox_min, inv_len,
                Phi, Mi) -> (Phi, Mi)
     """
-    from ..splatting import _env_le_at, walk_light_paths
-
-    lights = scene["lights"]
+    walk = make_photon_walk(scene, meta, seed, max_len)
 
     def deposit_chunk(photon_ids, it, bbox_min, inv_len, max_r):
-        telemetry.count("sppm.photons", photon_ids.shape[0])
-        with telemetry.span("sppm.photon"):
-            em, verts = walk_light_paths(scene, meta, photon_ids, it, seed,
-                                         max_len + 1, mode=bx.MODE_RADIANCE)
-            le_scale = lt.eval_emission(
-                lights, em["lid"], em["n"], em["dir"],
-                env_le=_env_le_at(scene, meta, em["dir"]))
-            rows, valid = [], []
-            # deposits only for path length > 1 (vertex d has length
-            # d + 1): direct light is the ray pass's NEE
-            for d in range(1, verts["p"].shape[0]):
-                wgt = verts["tp"][d] * le_scale
-                rows.append(torch.cat([
-                    verts["p"][d], verts["wo_prev"][d], wgt,
-                    torch.full_like(wgt[:, :1], float(d + 1)),
-                ], dim=-1))
-                valid.append(verts["valid"][d])
-            rows = torch.cat(rows)  # (N, 10)
-            valid = torch.cat(valid)
+        rows, valid = walk(photon_ids, it)
         with telemetry.span("sppm.grid"):
+            rows, valid = chunk_deposits(rows, valid, 0, rows.shape[1])
             return rows, *_grid_entries(rows, valid, bbox_min, inv_len,
                                         max_r, n_pix)
 
@@ -367,7 +405,9 @@ def make_sppm(scene, meta, chunk_size=PHOTON_CHUNK, iterations=None,
     """-> SPPM for the scene: iteration it's streams are a pure function of
     (seed, it), so a state can take iterations in any order and resume
     anywhere. iterations (default: the scene's sample_per_pixel) sets the
-    camera's stratification; chunk_size: photons per deposit chunk."""
+    camera's stratification; chunk_size: photons per deposit chunk, the
+    grid's and the drain's unit (the light walk takes as many chunks at
+    once as walk_lanes allows)."""
     spec = meta.camera.film
     if iterations is None:
         iterations = int(meta.settings.get("sample_per_pixel", 1))
@@ -383,11 +423,14 @@ def make_sppm(scene, meta, chunk_size=PHOTON_CHUNK, iterations=None,
     cols = torch.arange(xs_, xs_ + xc, dtype=torch.int32, device=dev)
     pixel_ids = (rows[:, None] * spec.x_res + cols[None, :]).reshape(-1)
     ray_pass = make_ray_pass(scene, meta, seed, max_len, spp_grid(iterations))
-    deposit_chunk, vp_drain = make_photon_passes(scene, meta, seed + 77,
-                                                 max_len, n_pix)
+    walk = make_photon_walk(scene, meta, seed + 77, max_len)
+    _, vp_drain = make_photon_passes(scene, meta, seed + 77, max_len, n_pix)
     # whole chunks; emitted counts every photon traced
     cs = min(chunk_size, n_pix)
-    n_chunks = (n_pix + cs - 1) // cs
+    n_photons = -(-n_pix // cs) * cs
+    lanes = walk_lanes(n_pix, cs, max_len,
+                       torch.cuda.mem_get_info(dev)[0]
+                       if dev.type == "cuda" else None)
 
     def new_state(state=None):
         if state is not None:
@@ -417,18 +460,24 @@ def make_sppm(scene, meta, chunk_size=PHOTON_CHUNK, iterations=None,
                 bbox_min, inv_len, max_r = vp_cell_meta(vp, radius)
             Phi = torch.zeros((n_pix, 3), dtype=torch.float32, device=dev)
             Mi = torch.zeros(n_pix, dtype=torch.float32, device=dev)
-            for c in range(n_chunks):
-                ids = torch.arange(emitted + c * cs, emitted + (c + 1) * cs,
+            for w0 in range(0, n_photons, lanes):
+                ids = torch.arange(emitted + w0,
+                                   emitted + min(w0 + lanes, n_photons),
                                    dtype=torch.int32, device=dev)
-                rows_c, e_hash, e_idx = deposit_chunk(ids, it, bbox_min,
-                                                      inv_len, max_r)
-                Phi, Mi = vp_drain(vp, radius, rows_c, e_hash, e_idx,
-                                   bbox_min, inv_len, Phi, Mi)
+                rows_w, valid_w = walk(ids, it)
+                for lo in range(0, ids.shape[0], cs):
+                    with telemetry.span("sppm.grid"):
+                        rows_c, valid_c = chunk_deposits(rows_w, valid_w, lo,
+                                                         lo + cs)
+                        e_hash, e_idx = _grid_entries(
+                            rows_c, valid_c, bbox_min, inv_len, max_r, n_pix)
+                    Phi, Mi = vp_drain(vp, radius, rows_c, e_hash, e_idx,
+                                       bbox_min, inv_len, Phi, Mi)
             with telemetry.span("sppm.update"):
                 state["Ni"], state["Tau"], state["radius"] = _update(
                     state["Ni"], state["Tau"], radius, Phi, Mi, vp["tp"],
                     vp["valid"])
-            state["emitted"] = emitted + n_chunks * cs
+            state["emitted"] = emitted + n_photons
             state["it"] = it + 1
         return state
 
