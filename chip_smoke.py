@@ -333,7 +333,7 @@ def wavefronts(scene, meta):
     import torch
 
     from goblin_tpu_torch.core.rng import hash_uniform
-    from goblin_tpu_torch.integrators import common, path
+    from goblin_tpu_torch.integrators import common, direct, path
     from goblin_tpu_torch.integrators.materials import gather_material
     from goblin_tpu_torch.lights import lights as lt
     from goblin_tpu_torch.scene.intersect import intersect
@@ -372,7 +372,7 @@ def wavefronts(scene, meta):
     if not meta.all_delta_lights:
         u1, u2 = common.stratified_2d(seed, pix, s_idx, n_spp, b,
                                       path.DIM_LIGHT_U1, path.DIM_LIGHT_U2)
-    ls = lt.sample_li(scene["lights"], path._em_tri_data(scene), lid, p, eps,
+    ls = lt.sample_li(scene["lights"], direct.em_tri_data(scene), lid, p, eps,
                       u1, u2)
     f_l = bx.bsdf_eval(mat, ns, wo, ls["wi"], bx.BSDF_ALL)
     consider = (active & (ls["pdf"] > 0.0) & (ls["Li"] > 0.0).any(dim=-1)
@@ -495,7 +495,7 @@ def photon_wavefront(scene, seed):
     from goblin_tpu_torch import splatting as sp
     from goblin_tpu_torch.core.rng import hash_uniform
     from goblin_tpu_torch.integrators import sppm
-    from goblin_tpu_torch.integrators.path import _em_tri_data
+    from goblin_tpu_torch.integrators import direct
     from goblin_tpu_torch.lights import lights as lt
 
     dev = scene["tri_rows"].device
@@ -505,7 +505,7 @@ def photon_wavefront(scene, seed):
         return hash_uniform(seed + 77, ids, 0, 0, dim)
 
     lid, _ = lt.pick_light(scene["lights"], u(sp.DIM_PICK))
-    em = lt.sample_emission(scene["lights"], _em_tri_data(scene), lid,
+    em = lt.sample_emission(scene["lights"], direct.em_tri_data(scene), lid,
                             u(sp.DIM_POS1), u(sp.DIM_POS2), u(sp.DIM_DIR1),
                             u(sp.DIM_DIR2))
     return [em["p"], em["dir"],

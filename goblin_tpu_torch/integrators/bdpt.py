@@ -39,9 +39,9 @@ from ..core.rng import hash_uniform
 from ..lights import lights as lt
 from ..scene import intersect as scn
 from ..shading import bsdf as bx
+from . import direct
 from .common import DIM_BASE, pixel_samples, spp_grid
 from .materials import gather_material
-from .path import _em_tri_data
 
 _BIG_T = 3.0e38
 LIGHT_SALT = DIM_BASE + 10  # the light walk's sample streams
@@ -166,15 +166,14 @@ def bdpt_contributions(scene, meta, pixel_ids, s_idx, seed, max_len,
     R = pixel_ids.shape[0]
     dev = pixel_ids.device
     n_grid = spp_grid(int(meta.settings.get("sample_per_pixel", 1)))
-    from ..splatting import _env_le_at
 
     def u(k):
         return hash_uniform(seed, pixel_ids, s_idx, 0, DIM_BASE + k)
 
     # ---- the light path's start
     lid, pick_pdf = lt.pick_light(lights, u(0))
-    em = lt.sample_emission(lights, _em_tri_data(scene), lid, u(1), u(2),
-                            u(3), u(4))
+    em = lt.sample_emission(lights, direct.em_tri_data(scene), lid, u(1),
+                            u(2), u(3), u(4))
     pdf_bwd_l0 = em["pdf_pos"] * pick_pdf
     pdf_fwd_l0 = torch.where(
         em["is_delta"], em["pdf_dir"],
@@ -183,7 +182,7 @@ def bdpt_contributions(scene, meta, pixel_ids, s_idx, seed, max_len,
     l0_spec = lights["type"][lid] == lt.LIGHT_DIRECTIONAL
     l0_tp = 1.0 / torch.clamp(pdf_bwd_l0, min=1e-20)
     Le0 = lt.eval_emission(lights, lid, em["n"], em["dir"],
-                           env_le=_env_le_at(scene, meta, em["dir"]))
+                           env_le=direct.env_le_at(scene, meta, em["dir"]))
     walk_tp_l = (l0_tp / torch.clamp(pdf_fwd_l0, min=1e-20))[:, None] * Le0
     lverts = _walk(scene, meta, pixel_ids, s_idx, seed, em["p"], em["dir"],
                    walk_tp_l, bx.MODE_IMPORTANCE, max_len, LIGHT_SALT)
@@ -282,9 +281,10 @@ def bdpt_contributions(scene, meta, pixel_ids, s_idx, seed, max_len,
                 ok = ok & (end_light >= 0)
                 wo = vm.normalize(ev_get("p", t - 2) - ev_get("p", t - 1),
                                   eps=1e-30)
-                cst = lt.eval_emission(lights, torch.clamp(end_light, min=0),
-                                       ev_get("ns", t - 1), wo,
-                                       env_le=_env_le_at(scene, meta, wo))
+                cst = lt.eval_emission(
+                    lights, torch.clamp(end_light, min=0),
+                    ev_get("ns", t - 1), wo,
+                    env_le=direct.env_le_at(scene, meta, wo))
                 contrib = cst * ev_get("tp", t - 1)
                 sx, sy = x, y
             elif t == 0:
@@ -302,8 +302,9 @@ def bdpt_contributions(scene, meta, pixel_ids, s_idx, seed, max_len,
                 dist = torch.clamp(vm.squared_length(conn).sqrt(), min=1e-20)
                 cd = conn / dist[:, None]
                 if s == 1:
-                    fsL = lt.eval_emission(lights, lid, em["n"], cd,
-                                           env_le=_env_le_at(scene, meta, cd))
+                    fsL = lt.eval_emission(
+                        lights, lid, em["n"], cd,
+                        env_le=direct.env_le_at(scene, meta, cd))
                 else:
                     woL = vm.normalize(lv_get("p", s - 2) - sp_, eps=1e-30)
                     fsL = vertex_bsdf(lverts, "l", s - 1, woL, cd,

@@ -22,13 +22,11 @@ from __future__ import annotations
 import torch
 
 from .. import telemetry
-from ..core import vecmath as vm
 from ..core.rng import hash_uniform
-from ..core.sampling import power_heuristic
-from ..lights import envmap
 from ..lights import lights as lt
 from ..scene import intersect as scn
 from ..shading import bsdf as bx
+from . import direct
 from .bssrdf import subsurface_L
 from .common import DIM_BASE, spp_grid, stratified_1d, stratified_2d
 from .materials import gather_material
@@ -41,31 +39,6 @@ DIM_LIGHT_U2 = DIM_BASE + 2
 DIM_BSDF_U1 = DIM_BASE + 3
 DIM_BSDF_U2 = DIM_BASE + 4
 DIM_BSDF_COMP = DIM_BASE + 5
-
-_BIG_T = 3.0e38
-
-
-def _em_tri_data(scene):
-    """The emissive-triangle rows the light sampling reads."""
-    return {"em_rows": scene["em_rows"]}
-
-
-def _env_le(scene, meta, d):
-    """Environment radiance for direction d (zeros without an image-based
-    light)."""
-    if not meta.has_env:
-        return torch.zeros(d.shape[:-1] + (3,), dtype=torch.float32,
-                           device=d.device)
-    return envmap.eval_env(scene, meta, d)
-
-
-def _area_light_Le(scene, frag, wo):
-    """Emission toward wo from the hit point, one-sided (reference
-    AreaLight::L: dot(ns, w) > 0). Zero for lanes that hit no emitter."""
-    lid = frag["light"]
-    Le = scene["lights"]["color"][torch.clamp(lid, min=0)]
-    facing = vm.dot(frag["ns"], wo) > 0.0
-    return torch.where(((lid >= 0) & facing)[..., None], Le, 0.0)
 
 
 def make_li(meta, max_depth=None, with_stats=False):
@@ -83,14 +56,13 @@ def make_li(meta, max_depth=None, with_stats=False):
 
     def li(scene, meta_, ray, pixel_ids, s_idx, seed):
         lights = scene["lights"]
-        tri_data = _em_tri_data(scene)
         R = ray["o"].shape[0]
         frag = scn.intersect(scene, meta, ray["o"], ray["d"], ray["mint"],
                              ray["maxt"], dxd=ray.get("dxd"),
                              dyd=ray.get("dyd"))
         L = torch.where(frag["hit"][:, None],
-                        _area_light_Le(scene, frag, frag["wo"]),
-                        _env_le(scene, meta, ray["d"]))
+                        direct.area_light_le(scene, frag, frag["wo"]),
+                        direct.env_le(scene, meta, ray["d"]))
         if meta.n_lights == 0:
             if with_stats:
                 z = torch.zeros(max_depth - 1, dtype=torch.int32,
@@ -122,37 +94,9 @@ def make_li(meta, max_depth=None, with_stats=False):
             else:
                 u1, u2 = stratified_2d(seed, pixel_ids, s_idx, n_spp, b,
                                        DIM_LIGHT_U1, DIM_LIGHT_U2)
-            ls = lt.sample_li(lights, tri_data, lid, p, eps, u1, u2)
-            if meta.has_env:
-                # a pick of the image-based light samples the map
-                is_ibl = lights["type"][lid] == lt.LIGHT_IBL
-                env_li, env_wi, env_pdf = envmap.sample_env(scene, meta, u1, u2)
-                ls["Li"] = torch.where(is_ibl[:, None], env_li, ls["Li"])
-                ls["wi"] = torch.where(is_ibl[:, None], env_wi, ls["wi"])
-                ls["pdf"] = torch.where(is_ibl, env_pdf, ls["pdf"])
-                ls["shadow_maxt"] = torch.where(is_ibl, 3.0e37,
-                                                ls["shadow_maxt"])
-            f_l = bx.bsdf_eval(mat, ns, wo, ls["wi"], bx.BSDF_ALL)
-            consider = (active & (ls["pdf"] > 0.0)
-                        & (ls["Li"] > 0.0).any(dim=-1)
-                        & (f_l > 0.0).any(dim=-1))
-            # dead lanes (mint = BIG_T, maxt = 0) skip the traversal
-            occ, tr = scn.occluded_attenuated(
-                scene, meta, p, ls["wi"],
-                torch.where(consider, eps, _BIG_T),
-                torch.where(consider, ls["shadow_maxt"], 0.0),
-            )
-            vis = consider & ~occ
-            bsdf_pdf_l = bx.bsdf_pdf(mat, ns, wo, ls["wi"], bx.BSDF_ALL)
-            w_l = torch.where(ls["is_delta"], 1.0,
-                              power_heuristic(1.0, ls["pdf"], 1.0, bsdf_pdf_l))
-            Ld = torch.where(
-                vis[:, None],
-                f_l * tr * ls["Li"]
-                * (vm.absdot(ns, ls["wi"]) * w_l
-                   / torch.clamp(ls["pdf"], min=1e-20))[:, None],
-                0.0,
-            )
+            ls = direct.sample_light(scene, meta, lid, p, eps, u1, u2)
+            Ld, consider = direct.light_side(scene, meta, mat, frag, ls,
+                                             active)
 
             # BSDF-sample side: continuation ray + MIS light hit
             bu1, bu2 = stratified_2d(seed, pixel_ids, s_idx, n_spp, b,
@@ -161,12 +105,11 @@ def make_li(meta, max_depth=None, with_stats=False):
                                   DIM_BSDF_COMP + 3)
             bs = bx.bsdf_sample(mat, ns, frag["dpdu"], wo, bu1, bu2, bcomp,
                                 bx.BSDF_ALL)
-            wi, f_b, pdf_b = bs["wi"], bs["f"], bs["pdf"]
-            cont_ok = active & bs["valid"] & (f_b > 0.0).any(dim=-1)
+            cont_ok = active & bs["valid"] & (bs["f"] > 0.0).any(dim=-1)
             if trace_cont:
                 frag2 = scn.intersect(
-                    scene, meta, p, wi,
-                    torch.where(cont_ok, eps, _BIG_T),
+                    scene, meta, p, bs["wi"],
+                    torch.where(cont_ok, eps, scn.BIG_T),
                     torch.where(cont_ok, 3.0e37, 0.0),
                 )
             else:
@@ -174,51 +117,14 @@ def make_li(meta, max_depth=None, with_stats=False):
                 # cannot be emissive and the walk ends, so skip the trace
                 frag2 = {k: torch.zeros_like(v) for k, v in frag.items()}
                 frag2["light"] = torch.full_like(frag["light"], -1)
-
-            cos_at_light = vm.dot(frag2["ns"], -wi)
-            pdf_l_of_b = lt.pdf_li(lights, lid, p, wi, frag2["t"],
-                                   cos_at_light, frag2["light"])
-            f_weight = torch.where(
-                bs["is_specular"] | bs["is_null"], 1.0,
-                power_heuristic(1.0, pdf_b, 1.0, pdf_l_of_b),
-            )
-            # emission along the BSDF ray, only from the picked light
-            hit_le = _area_light_Le(scene, frag2, -wi)
-            hit_is_picked = frag2["hit"] & (frag2["light"] == lid)
-            Ld_b = torch.where(
-                (cont_ok & hit_is_picked)[:, None],
-                f_b * hit_le * (vm.absdot(wi, ns) * f_weight
-                                / torch.clamp(pdf_b, min=1e-20))[:, None],
-                0.0,
-            )
-            if meta.has_env:
-                # an escaped BSDF ray, with the image-based light picked:
-                # the map's radiance, MIS against its pdf
-                env_w = torch.where(
-                    bs["is_specular"] | bs["is_null"], 1.0,
-                    power_heuristic(1.0, pdf_b, 1.0,
-                                    envmap.pdf_env(scene, meta, wi)))
-                is_ibl = lights["type"][lid] == lt.LIGHT_IBL
-                Ld_b = Ld_b + torch.where(
-                    (cont_ok & ~frag2["hit"] & is_ibl)[:, None],
-                    f_b * _env_le(scene, meta, wi)
-                    * (vm.absdot(wi, ns) * env_w
-                       / torch.clamp(pdf_b, min=1e-20))[:, None],
-                    0.0)
-            L = L + torch.where(
-                active[:, None],
-                throughput * (Ld + Ld_b)
-                / torch.clamp(pick_pdf, min=1e-20)[:, None],
-                0.0,
-            )
+            Ld_b = direct.bsdf_side(scene, meta, lid, frag, bs, frag2, cont_ok)
+            L = direct.add_direct(L, active, throughput, Ld + Ld_b, pick_pdf)
 
             # continue the walk; inactive lanes keep their old fragment
             throughput = torch.where(
                 cont_ok[:, None],
-                throughput * f_b * (vm.absdot(wi, ns)
-                                    / torch.clamp(pdf_b, min=1e-20))[:, None],
-                throughput,
-            )
+                direct.bsdf_throughput(throughput, bs, ns),
+                throughput)
             active = cont_ok & frag2["hit"]
             new_frag = {
                 k: torch.where(active.reshape((R,) + (1,) * (v.ndim - 1)),

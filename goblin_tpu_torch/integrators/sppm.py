@@ -41,13 +41,13 @@ from .. import telemetry
 from ..camera import film as film_mod
 from ..core import vecmath as vm
 from ..core.rng import _mul32, _u32, hash_uniform
-from ..core.sampling import power_heuristic, radical_inverse
+from ..core.sampling import radical_inverse
 from ..lights import lights as lt
 from ..scene import intersect as scn
 from ..shading import bsdf as bx
+from . import direct
 from .common import pixel_samples, spp_grid
 from .materials import gather_material
-from .path import _area_light_Le, _em_tri_data, _env_le
 
 ALPHA = 0.7
 PHOTON_CHUNK = 1 << 15  # photons per deposit chunk
@@ -102,7 +102,6 @@ def make_ray_pass(scene, meta, seed, max_len, n_grid):
     cam = meta.camera
     spec = cam.film
     lights = scene["lights"]
-    tri_data = _em_tri_data(scene)
 
     def ray_pass(pixel_ids, it: int):
         R = pixel_ids.shape[0]
@@ -116,8 +115,8 @@ def make_ray_pass(scene, meta, seed, max_len, n_grid):
         frag = scn.intersect(scene, meta, ray["o"], ray["d"], ray["mint"],
                              ray["maxt"])
         Ld = torch.where(frag["hit"][:, None],
-                         _area_light_Le(scene, frag, frag["wo"]),
-                         _env_le(scene, meta, ray["d"]))
+                         direct.area_light_le(scene, frag, frag["wo"]),
+                         direct.env_le(scene, meta, ray["d"]))
 
         def zeros(*shape, dtype=torch.float32):
             return torch.zeros((R,) + shape, dtype=dtype, device=dev)
@@ -146,35 +145,17 @@ def make_ray_pass(scene, meta, seed, max_len, n_grid):
                 path_len = b + 1
 
                 # NEE: one light pick; the continuation sample is the MIS
-                # partner, as in the path tracer
+                # partner, as in the path tracer. No image-based light in
+                # NEE, and the shadow rays are plain any-hit ones
                 if meta.n_lights > 0:
                     lid, pick_pdf = lt.pick_light(lights, qmc(b, 1))
                     u1 = u2 = None
                     if not meta.all_delta_lights:
                         u1, u2 = qmc(b, 2), qmc(b, 3)
-                    ls = lt.sample_li(lights, tri_data, lid, p, eps, u1, u2)
-                    f_l = bx.bsdf_eval(mat, ns, wo, ls["wi"], bx.BSDF_ALL)
-                    consider = (active & (ls["pdf"] > 0.0)
-                                & (ls["Li"] > 0.0).any(dim=-1)
-                                & (f_l > 0.0).any(dim=-1))
-                    # lanes not considered skip the traversal
-                    occ = scn.occluded(
-                        scene, meta, p, ls["wi"],
-                        torch.where(consider, eps, _BIG_T),
-                        torch.where(consider, ls["shadow_maxt"], 0.0))
-                    vis = consider & ~occ
-                    pdf_b_l = bx.bsdf_pdf(mat, ns, wo, ls["wi"],
-                                          bx.BSDF_ALL)
-                    w_l = torch.where(
-                        ls["is_delta"], 1.0,
-                        power_heuristic(1.0, ls["pdf"], 1.0, pdf_b_l))
-                    nee = torch.where(
-                        vis[:, None],
-                        f_l * ls["Li"] * (
-                            vm.absdot(ns, ls["wi"]) * w_l
-                            / torch.clamp(ls["pdf"], min=1e-20))[:, None],
-                        0.0,
-                    )
+                    ls = direct.sample_light(scene, meta, lid, p, eps, u1, u2,
+                                             ibl=False)
+                    nee, _ = direct.light_side(scene, meta, mat, frag, ls,
+                                               active, through_masks=False)
 
                 # continuation sample (also the BSDF side of the MIS)
                 bs = bx.bsdf_sample(mat, ns, frag["dpdu"], wo, qmc(b, 4),
@@ -184,25 +165,9 @@ def make_ray_pass(scene, meta, seed, max_len, n_grid):
                                       torch.where(cont_ok, eps, _BIG_T),
                                       torch.where(cont_ok, 3.0e37, 0.0))
                 if meta.n_lights > 0:
-                    cos_l = vm.dot(frag2["ns"], -bs["wi"])
-                    pdf_l_b = lt.pdf_li(lights, lid, p, bs["wi"], frag2["t"],
-                                        cos_l, frag2["light"])
-                    w_b = torch.where(
-                        bs["is_specular"] | bs["is_null"], 1.0,
-                        power_heuristic(1.0, bs["pdf"], 1.0, pdf_l_b))
-                    le2 = _area_light_Le(scene, frag2, -bs["wi"])
-                    hit_picked = frag2["hit"] & (frag2["light"] == lid)
-                    nee = nee + torch.where(
-                        (cont_ok & hit_picked)[:, None],
-                        bs["f"] * le2 * (
-                            vm.absdot(bs["wi"], ns) * w_b
-                            / torch.clamp(bs["pdf"], min=1e-20))[:, None],
-                        0.0,
-                    )
-                    Ld = Ld + torch.where(
-                        active[:, None],
-                        tp * nee / torch.clamp(pick_pdf, min=1e-20)[:, None],
-                        0.0)
+                    nee = nee + direct.bsdf_side(scene, meta, lid, frag, bs,
+                                                 frag2, cont_ok, ibl=False)
+                    Ld = direct.add_direct(Ld, active, tp, nee, pick_pdf)
 
                 # stop at a diffuse vertex (record the visible point) or go
                 # on
@@ -217,9 +182,7 @@ def make_ray_pass(scene, meta, seed, max_len, n_grid):
                 vp["len"] = torch.where(record, path_len, vp["len"])
                 vp["valid"] = vp["valid"] | record
 
-                tp2 = tp * bs["f"] * (
-                    vm.absdot(bs["wi"], ns)
-                    / torch.clamp(bs["pdf"], min=1e-20))[:, None]
+                tp2 = direct.bsdf_throughput(tp, bs, ns)
                 active = active & ~record & cont_ok & frag2["hit"]
                 tp = torch.where(active[:, None], tp2, tp)
                 frag = {k: torch.where(
@@ -286,7 +249,7 @@ def make_photon_walk(scene, meta, seed, max_len):
     1 .. D = max_len - 1 (vertex d has path length d + 1; direct light is
     the ray pass's NEE). A photon's streams hash (seed, its id, it), so a
     walk over any set of ids gives each photon the same rows."""
-    from ..splatting import _env_le_at, walk_light_paths
+    from ..splatting import walk_light_paths
 
     lights = scene["lights"]
 
@@ -298,7 +261,7 @@ def make_photon_walk(scene, meta, seed, max_len):
                                          max_len + 1, mode=bx.MODE_RADIANCE)
             le_scale = lt.eval_emission(
                 lights, em["lid"], em["n"], em["dir"],
-                env_le=_env_le_at(scene, meta, em["dir"]))
+                env_le=direct.env_le_at(scene, meta, em["dir"]))
             wgt = verts["tp"][1:] * le_scale
             D, N = wgt.shape[:2]
             plen = torch.arange(2, D + 2, dtype=torch.float32,

@@ -30,19 +30,16 @@ from __future__ import annotations
 import torch
 
 from ..camera import film as film_mod
-from ..core import vecmath as vm
 from ..core.rng import hash_uniform
-from ..core.sampling import power_heuristic
-from ..lights import envmap
 from ..lights import lights as lt
 from ..scene import intersect as scn
 from ..shading import bsdf as bx
+from . import direct
 from .common import (camera_rays, crop_pixel_ids, spp_grid, splat_pass,
                      stratified_1d, stratified_2d)
 from .materials import gather_material
 from .path import (DIM_BSDF_COMP, DIM_BSDF_U1, DIM_BSDF_U2, DIM_LIGHT_U1,
-                   DIM_LIGHT_U2, DIM_PICK, _area_light_Le, _em_tri_data,
-                   _env_le)
+                   DIM_LIGHT_U2, DIM_PICK)
 from .volume import KEY_JITTER, eval_lv, transmittance
 
 _BIG_T = scn.BIG_T
@@ -85,7 +82,6 @@ def render_wavefront(scene, meta, spp=None, seed=None, pool=1 << 16,
     # the integrator's dims stratify over the declared spp, as make_li's
     n_strat = spp_grid(int(settings.get("sample_per_pixel", 1))) ** 2
     lights = scene["lights"]
-    tri_data = _em_tri_data(scene)
     dev = scene["tri_rows"].device
     row_major = crop_pixel_ids(spec, dev).long()
     n_pix = row_major.numel()
@@ -117,32 +113,8 @@ def render_wavefront(scene, meta, spp=None, seed=None, pool=1 << 16,
         else:
             u1, u2 = stratified_2d(seed, pix, s_idx, n_strat, b,
                                    DIM_LIGHT_U1, DIM_LIGHT_U2)
-        ls = lt.sample_li(lights, tri_data, lid, p, eps, u1, u2)
-        if meta.has_env:
-            is_ibl = lights["type"][lid] == lt.LIGHT_IBL
-            env_li, env_wi, env_pdf = envmap.sample_env(scene, meta, u1, u2)
-            ls["Li"] = torch.where(is_ibl[:, None], env_li, ls["Li"])
-            ls["wi"] = torch.where(is_ibl[:, None], env_wi, ls["wi"])
-            ls["pdf"] = torch.where(is_ibl, env_pdf, ls["pdf"])
-            ls["shadow_maxt"] = torch.where(is_ibl, 3.0e37,
-                                            ls["shadow_maxt"])
-        f_l = bx.bsdf_eval(mat, ns, wo, ls["wi"], bx.BSDF_ALL)
-        consider = (surface & (ls["pdf"] > 0.0)
-                    & (ls["Li"] > 0.0).any(dim=-1)
-                    & (f_l > 0.0).any(dim=-1))
-        occ, tr_null = scn.occluded_attenuated(
-            scene, meta, p, ls["wi"], torch.where(consider, eps, _BIG_T),
-            torch.where(consider, ls["shadow_maxt"], 0.0))
-        vis = consider & ~occ
-        bsdf_pdf_l = bx.bsdf_pdf(mat, ns, wo, ls["wi"], bx.BSDF_ALL)
-        w_l = torch.where(ls["is_delta"], 1.0,
-                          power_heuristic(1.0, ls["pdf"], 1.0, bsdf_pdf_l))
-        Ld = torch.where(
-            vis[:, None],
-            f_l * tr_null * ls["Li"]
-            * (vm.absdot(ns, ls["wi"]) * w_l
-               / torch.clamp(ls["pdf"], min=1e-20))[:, None],
-            0.0)
+        ls = direct.sample_light(scene, meta, lid, p, eps, u1, u2)
+        Ld, consider = direct.light_side(scene, meta, mat, frag, ls, surface)
 
         # the BSDF continuation sample (surface lanes)
         bu1, bu2 = stratified_2d(seed, pix, s_idx, n_strat, b,
@@ -150,8 +122,7 @@ def render_wavefront(scene, meta, spp=None, seed=None, pool=1 << 16,
         bcomp = stratified_1d(seed, pix, s_idx, n_strat, b, DIM_BSDF_COMP + 3)
         bs = bx.bsdf_sample(mat, ns, frag["dpdu"], wo, bu1, bu2, bcomp,
                             bx.BSDF_ALL)
-        wi, f_b, pdf_b = bs["wi"], bs["f"], bs["pdf"]
-        cont_ok = surface & bs["valid"] & (f_b > 0.0).any(dim=-1)
+        cont_ok = surface & bs["valid"] & (bs["f"] > 0.0).any(dim=-1)
 
         # one closest-hit: camera rays for fresh lanes, continuation rays
         # for surface lanes
@@ -159,7 +130,7 @@ def render_wavefront(scene, meta, spp=None, seed=None, pool=1 << 16,
         fresh = live & is_primary
         prim = fresh[:, None]
         o_c = torch.where(prim, cray["o"], p)
-        d_c = torch.where(prim, cray["d"], wi)
+        d_c = torch.where(prim, cray["d"], bs["wi"])
         mint_c = torch.where(fresh, cray["mint"],
                              torch.where(cont_ok, eps, _BIG_T))
         maxt_c = torch.where(fresh, cray["maxt"],
@@ -173,9 +144,10 @@ def render_wavefront(scene, meta, spp=None, seed=None, pool=1 << 16,
 
         # the primary segment's emission and environment
         L = L + torch.where((fresh & ~frag2["hit"])[:, None],
-                            _env_le(scene, meta, d_c), 0.0)
+                            direct.env_le(scene, meta, d_c), 0.0)
         L = L + torch.where((fresh & frag2["hit"])[:, None],
-                            _area_light_Le(scene, frag2, frag2["wo"]), 0.0)
+                            direct.area_light_le(scene, frag2, frag2["wo"]),
+                            0.0)
         if vol is not None:
             # the volume over the camera segment, applied at retirement;
             # other lanes trace their shadow rays as dead lanes
@@ -188,37 +160,10 @@ def render_wavefront(scene, meta, spp=None, seed=None, pool=1 << 16,
                                            maxt_v, pix, s_idx, seed), Lv)
 
         # the BSDF side's MIS light contribution (surface lanes)
-        pdf_l_of_b = lt.pdf_li(lights, lid, p, wi, frag2["t"],
-                               vm.dot(frag2["ns"], -wi), frag2["light"])
-        f_weight = torch.where(bs["is_specular"] | bs["is_null"], 1.0,
-                               power_heuristic(1.0, pdf_b, 1.0, pdf_l_of_b))
-        hit_is_picked = frag2["hit"] & (frag2["light"] == lid)
-        Ld_b = torch.where(
-            (cont_ok & hit_is_picked)[:, None],
-            f_b * _area_light_Le(scene, frag2, -wi)
-            * (vm.absdot(wi, ns) * f_weight
-               / torch.clamp(pdf_b, min=1e-20))[:, None],
-            0.0)
-        if meta.has_env:
-            env_w = torch.where(
-                bs["is_specular"] | bs["is_null"], 1.0,
-                power_heuristic(1.0, pdf_b, 1.0,
-                                envmap.pdf_env(scene, meta, wi)))
-            is_ibl = lights["type"][lid] == lt.LIGHT_IBL
-            Ld_b = Ld_b + torch.where(
-                (cont_ok & ~frag2["hit"] & is_ibl)[:, None],
-                f_b * _env_le(scene, meta, wi)
-                * (vm.absdot(wi, ns) * env_w
-                   / torch.clamp(pdf_b, min=1e-20))[:, None],
-                0.0)
-        L = L + torch.where(
-            surface[:, None],
-            tp * (Ld + Ld_b) / torch.clamp(pick_pdf, min=1e-20)[:, None], 0.0)
-        tp = torch.where(
-            cont_ok[:, None],
-            tp * f_b * (vm.absdot(wi, ns)
-                        / torch.clamp(pdf_b, min=1e-20))[:, None],
-            tp)
+        Ld_b = direct.bsdf_side(scene, meta, lid, frag, bs, frag2, cont_ok)
+        L = direct.add_direct(L, surface, tp, Ld + Ld_b, pick_pdf)
+        tp = torch.where(cont_ok[:, None], direct.bsdf_throughput(tp, bs, ns),
+                         tp)
 
         # advance, retire, regenerate: a surface lane goes on while its
         # continuation hit something and bounces are left (bounce counts

@@ -33,10 +33,10 @@ from ..lights import lights as lt
 from ..scene import intersect as scn
 from ..shading import bsdf as bx
 from ..shading.bsdf import MAT_MIRROR, MAT_SUBSURFACE, MAT_TRANSPARENT
+from . import direct
 from .bssrdf import subsurface_L
 from .common import DIM_BASE
 from .materials import gather_material
-from .path import _area_light_Le, _em_tri_data, _env_le
 
 # a child's sample streams are keyed by this plus its number in the tree
 NODE_TAG_BASE = 0x100
@@ -61,7 +61,6 @@ def _direct_light(scene, meta, frag, mat, active, pixel_ids, s_idx, seed,
     GoblinWhitted.cpp:30-32). Each sample takes a light-side shadow query,
     which punches through mask surfaces, and a BSDF-side intersect."""
     lights = scene["lights"]
-    tri_data = _em_tri_data(scene)
     R = frag["p"].shape[0]
     dev = frag["p"].device
     p, ns, wo, eps = frag["p"], frag["ns"], frag["wo"], frag["eps"]
@@ -89,26 +88,11 @@ def _direct_light(scene, meta, frag, mat, active, pixel_ids, s_idx, seed,
                       "is_delta": torch.zeros(R, dtype=torch.bool,
                                               device=dev)}
             else:
-                ls = lt.sample_li(lights, tri_data, lid, p, eps, u(dim0),
-                                  u(dim0 + 1))
-            f_l = bx.bsdf_eval(mat, ns, wo, ls["wi"], nee_type)
-            consider = (active & (ls["pdf"] > 0.0)
-                        & (ls["Li"] > 0.0).any(dim=-1)
-                        & (f_l > 0.0).any(dim=-1))
-            occ, tr_null = scn.occluded_attenuated(
-                scene, meta, p, ls["wi"],
-                torch.where(consider, eps, scn.BIG_T),
-                torch.where(consider, ls["shadow_maxt"], 0.0))
-            vis = consider & ~occ
-            bsdf_pdf_l = bx.bsdf_pdf(mat, ns, wo, ls["wi"], nee_type)
-            w_l = torch.where(ls["is_delta"], 1.0,
-                              power_heuristic(1.0, ls["pdf"], 1.0, bsdf_pdf_l))
-            Ld_i = Ld_i + torch.where(
-                vis[:, None],
-                f_l * tr_null * ls["Li"]
-                * (vm.absdot(ns, ls["wi"]) * w_l
-                   / torch.clamp(ls["pdf"], min=1e-20))[:, None],
-                0.0)
+                ls = direct.sample_light(scene, meta, lid, p, eps, u(dim0),
+                                         u(dim0 + 1), ibl=False)
+            Ld_l, _ = direct.light_side(scene, meta, mat, frag, ls, active,
+                                        lobes=nee_type)
+            Ld_i = Ld_i + Ld_l
             # --- the BSDF-sample side (masked for delta lights)
             bsn = bx.bsdf_sample(mat, ns, frag["dpdu"], wo, u(dim0 + 2),
                                  u(dim0 + 3), u(dim0 + 4), nee_type)
@@ -120,13 +104,13 @@ def _direct_light(scene, meta, frag, mat, active, pixel_ids, s_idx, seed,
             if is_env_light:
                 # the map, where the BSDF ray escapes
                 pdf_l_b = envmap.pdf_env(scene, meta, bsn["wi"])
-                Li_b = _env_le(scene, meta, bsn["wi"])
+                Li_b = direct.env_le(scene, meta, bsn["wi"])
                 got = b_ok & ~fragb["hit"] & (pdf_l_b > 0.0)
             else:
                 cos_l = vm.dot(fragb["ns"], -bsn["wi"])
                 pdf_l_b = lt.pdf_li(lights, lid, p, bsn["wi"], fragb["t"],
                                     cos_l, fragb["light"])
-                Li_b = _area_light_Le(scene, fragb, -bsn["wi"])
+                Li_b = direct.area_light_le(scene, fragb, -bsn["wi"])
                 got = (b_ok & fragb["hit"] & (fragb["light"] == lid)
                        & (pdf_l_b > 0.0))
             w_f = power_heuristic(1.0, bsn["pdf"], 1.0, pdf_l_b)
@@ -160,10 +144,11 @@ def make_li(meta, max_depth=None):
             incoming direction, looks the environment up on a miss."""
             hit = frag["hit"] & active
             L = torch.where(hit[:, None],
-                            _area_light_Le(scene, frag, frag["wo"]), 0.0)
+                            direct.area_light_le(scene, frag, frag["wo"]),
+                            0.0)
             if meta.has_env:
                 L = L + torch.where((active & ~frag["hit"])[:, None],
-                                    _env_le(scene, meta, d_in), 0.0)
+                                    direct.env_le(scene, meta, d_in), 0.0)
             if meta.n_lights == 0:
                 return L
 

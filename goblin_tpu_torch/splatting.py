@@ -21,10 +21,9 @@ import torch
 from .camera import film as film_mod
 from .core import vecmath as vm
 from .core.rng import hash_uniform
+from .integrators import direct
 from .integrators.common import DIM_BASE
 from .integrators.materials import gather_material
-from .integrators.path import _em_tri_data
-from .lights import envmap
 from .lights import lights as lt
 from .scene import intersect as scn
 from .shading import bsdf as bx
@@ -40,15 +39,6 @@ DIM_B2 = DIM_BASE + 6
 DIM_BC = DIM_BASE + 7
 
 _BIG_T = 3.0e38
-
-
-def _env_le_at(scene, meta, wo):
-    """The environment's radiance for emission toward wo: the map looked up
-    at -wo (ImageBasedLight::eval, src/GoblinLight.cpp:600-608); None
-    without an image-based light."""
-    if not meta.has_env:
-        return None
-    return envmap.eval_env(scene, meta, -wo)
 
 
 def walk_light_paths(scene, meta, path_ids, s_idx, seed, max_path_length,
@@ -71,8 +61,9 @@ def walk_light_paths(scene, meta, path_ids, s_idx, seed, max_path_length,
         return hash_uniform(seed, path_ids, s_idx, bounce, dim)
 
     lid, pick_pdf = lt.pick_light(lights, u(0, DIM_PICK))
-    em = lt.sample_emission(lights, _em_tri_data(scene), lid, u(0, DIM_POS1),
-                            u(0, DIM_POS2), u(0, DIM_DIR1), u(0, DIM_DIR2))
+    em = lt.sample_emission(lights, direct.em_tri_data(scene), lid,
+                            u(0, DIM_POS1), u(0, DIM_POS2), u(0, DIM_DIR1),
+                            u(0, DIM_DIR2))
     em["lid"] = lid
     em["pick_pdf"] = pick_pdf
     # throughput of the light vertex itself: 1 / (pdf_pos * pick_pdf)
@@ -165,7 +156,7 @@ def light_trace_contributions(scene, meta, path_ids, s_idx, seed,
     wo = to_cam / dist[:, None]
     sx, sy, _, scr_ok = cam.world_to_screen(p_light, p_cam)
     fsl = lt.eval_emission(lights, lid, n_light, wo,
-                           env_le=_env_le_at(scene, meta, wo))
+                           env_le=direct.env_le_at(scene, meta, wo))
     ok = _unoccluded(scene, meta, scr_ok & (fsl > 0).any(dim=-1), p_light, wo,
                      dist)
     G = vm.absdot(n_cam, wo) / torch.clamp(dist * dist, min=1e-20)
@@ -175,8 +166,9 @@ def light_trace_contributions(scene, meta, path_ids, s_idx, seed,
         ok, sx, sy, fsl * (we * G * cam_tp * em["vertex_tp"])[:, None])]
 
     # ---- s >= 2: the surface vertices
-    fsl_light = lt.eval_emission(lights, lid, n_light, em["dir"],
-                                 env_le=_env_le_at(scene, meta, em["dir"]))
+    fsl_light = lt.eval_emission(
+        lights, lid, n_light, em["dir"],
+        env_le=direct.env_le_at(scene, meta, em["dir"]))
     for d in range(max_path_length - 1):
         p, ns = verts["p"][d], verts["ns"][d]
         to_cam = p_cam - p
@@ -209,7 +201,7 @@ def light_trace_t0_contributions(scene, meta, path_ids, s_idx, seed,
     em, verts = walk_light_paths(scene, meta, path_ids, s_idx, seed,
                                  max_path_length)
     fsl = lt.eval_emission(scene["lights"], em["lid"], em["n"], em["dir"],
-                           env_le=_env_le_at(scene, meta, em["dir"]))
+                           env_le=direct.env_le_at(scene, meta, em["dir"]))
     out = []
     for d in range(max_path_length - 1):
         p_lens = verts["p"][d]
@@ -236,8 +228,9 @@ def light_trace_s1_contributions(scene, meta, path_ids, s_idx, seed,
         return hash_uniform(seed, path_ids, s_idx, bounce, dim)
 
     lid, pick_pdf = lt.pick_light(lights, u(0, DIM_PICK))
-    em = lt.sample_emission(lights, _em_tri_data(scene), lid, u(0, DIM_POS1),
-                            u(0, DIM_POS2), u(0, DIM_DIR1), u(0, DIM_DIR2))
+    em = lt.sample_emission(lights, direct.em_tri_data(scene), lid,
+                            u(0, DIM_POS1), u(0, DIM_POS2), u(0, DIM_DIR1),
+                            u(0, DIM_DIR2))
     p_light, n_light = em["p"], em["n"]
     l_tp = 1.0 / torch.clamp(em["pdf_pos"] * pick_pdf, min=1e-20)
 
@@ -260,7 +253,7 @@ def light_trace_s1_contributions(scene, meta, path_ids, s_idx, seed,
         dist = torch.clamp(vm.squared_length(to_l).sqrt(), min=1e-20)
         wi = to_l / dist[:, None]
         fsL = lt.eval_emission(lights, lid, n_light, -wi,
-                               env_le=_env_le_at(scene, meta, -wi))
+                               env_le=direct.env_le_at(scene, meta, -wi))
         G = light_side(wi) / (dist * dist)
         G = G * torch.where(em["is_delta"], 1.0, vm.absdot(n_light, wi))
         return _unoccluded(scene, meta, ok, p, wi, dist), wi, fsL, G * l_tp
