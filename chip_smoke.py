@@ -5,10 +5,11 @@
 
 Phases, each printed on its own lines, and any failure exits non-zero:
   1. card: nvidia-smi's name and power limit, torch's device name;
-  2. build: csrc/trace_bvh8.cu at widths 8 and 4, csrc/trace_bvh2.cu and
-     csrc/rng_hash.cu, one nvcc each, started together (seconds; ptxas's
-     registers, shared memory and stack frame; each trace kernel's block
-     size, stack levels and shared-memory budget);
+  2. build: csrc/trace_bvh8.cu at widths 8 and 4, csrc/trace_bvh2.cu,
+     csrc/rng_hash.cu and csrc/sppm_drain.cu, one nvcc each, started
+     together (seconds; ptxas's registers, shared memory and stack frame;
+     each trace kernel's block size, stack levels and shared-memory
+     budget);
   3. kernel vs plain: the BVH8 kernel against its plain PyTorch version on
      the full-frame bunny primary, bounce-1 continuation and bounce-1
      shadow wavefronts, traced in the main path's 65,536-ray chunks, in
@@ -159,6 +160,13 @@ Phases, each printed on its own lines, and any failure exits non-zero:
      65,536 and 196,608 lanes, bit for bit, each timed beside the int64
      form; its launches in phase 5 (one a hash call, 92 a pass) and over
      the whole run, beside the hash's calls (the CPU's calls launch none).
+ 28. SPPM's drain kernels (csrc/sppm_drain.cu: the match's count and fill
+     passes, the ordered sum) against their plain forms on bunny.json as
+     shipped at full size, iteration 5's first photon chunk, bit for bit,
+     each timed from its entry beside its plain form and its bound in
+     bytes; the whole drain in pair form against the loop on the same
+     tensors, bit for bit, with the wall time of each; phase 8's drains
+     all through the kernels (one count pass a drain).
 The last two lines are the kernel table and {"ok": true, "device": ...}.
 Each kernel's row carries its time (CUDA events over launches queued behind
 a spinning kernel, so the host's launch rate stays out of it), its plain
@@ -293,12 +301,22 @@ def ptxas_numbers(log):
     """What ptxas -v said of each entry function in a build's output ->
     {"production" | "stats": {registers, shared_bytes, stack_frame_bytes,
     spill_bytes}}; the stats instance is the template's <true>."""
+    out = {}
+    for name, numbers in ptxas_by_entry(log).items():
+        out.setdefault("stats" if "ILb1E" in name else "production",
+                       {}).update(numbers)
+    return out
+
+
+def ptxas_by_entry(log):
+    """What ptxas -v said of each entry function in a build's output ->
+    {mangled name: {registers, shared_bytes, stack_frame_bytes,
+    spill_bytes}}."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = out.setdefault(
-                "stats" if "ILb1E" in m.group(1) else "production", {})
+            cur = out.setdefault(m.group(1), {})
         if cur is None:
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
@@ -2578,10 +2596,159 @@ def hash_kernel_path(pt_hash, start_hash):
     return row
 
 
+# phase 28: timed launches of the drain's kernels from their entries at the
+# full-size cell's shapes (a few microseconds of the host each), and the
+# whole drain in both forms
+DRAIN_REPS = 100
+DRAIN_WALL_REPS = 5
+DRAIN_IT = 5
+
+
+def drain_kernel_path(sppm_launches):
+    """Phase 28: the drain's three kernels (csrc/sppm_drain.cu) against
+    their plain forms on bunny.json as shipped at full size, iteration
+    DRAIN_IT's first photon chunk, bit for bit, each timed beside its plain
+    form and its bound (the bytes it must move: each input byte once, the
+    rows and entries that the visible points' cells hold); the whole drain
+    in pair form against the loop on the same tensors, bit for bit, and the
+    wall time of each. sppm_launches is phase 8's (kernel drains, drains).
+    Returns the kernel table's row."""
+    import torch
+
+    from goblin_tpu_torch import telemetry
+    from goblin_tpu_torch.integrators import sppm
+    from goblin_tpu_torch.ops import trace as tt
+    from goblin_tpu_torch.scene.loader import load_scene
+
+    lib = tt._kernel_lib("sppm_drain")
+    stream = torch.cuda.current_stream().cuda_stream
+    row = {"name": "sppm_drain", "route": "cuda",
+           "source": "goblin_tpu_torch/csrc/sppm_drain.cu",
+           "replaces": "none: goblin_tpu/integrators/sppm.py::vp_drain is a "
+                       "jax.lax.while_loop of jnp turns", "library_ms": None,
+           "by_kernel": {}}
+    with torch.inference_mode():
+        scene, meta = load_scene(BUNNY, device="cuda")
+        spec = meta.camera.film
+        n_pix = spec.x_res * spec.y_res
+        max_len = int(meta.settings["max_ray_depth"])
+        ids = torch.arange(n_pix, dtype=torch.int32, device="cuda")
+        _, vp = sppm.make_ray_pass(scene, meta, 0, max_len, 10)(ids, DRAIN_IT)
+        radius = torch.full((n_pix,), float(meta.settings["initial_radius"]),
+                            device="cuda")
+        bbox_min, inv_len, max_r = sppm.vp_cell_meta(vp, radius)
+        deposit, _ = sppm.make_photon_passes(scene, meta, 77, max_len, n_pix)
+        rows, e_hash, e_idx = deposit(ids[:sppm.PHOTON_CHUNK], DRAIN_IT,
+                                      bbox_min, inv_len, max_r)
+        start, end = sppm._drain_cells(vp, e_hash, bbox_min, inv_len, n_pix)
+        r2 = radius * radius
+        budget = float(max_len) - vp["len"].to(torch.float32)
+        test = (start, end, e_idx, rows, vp["p"], r2, budget)
+        counts = sppm.drain_match(*test)
+        check(torch.equal(counts, sppm.drain_match_plain(*test)),
+              "sppm_drain: the count pass differs from its plain form")
+        ends = torch.cumsum(counts, 0, dtype=torch.int64)
+        n_pairs = int(ends[-1])
+        fill = (counts, ends, n_pairs)
+        pair_row, point = sppm.drain_match(*test, fill=fill)
+        ref_row, ref_point = sppm.drain_match_plain(*test, fill=fill)
+        check(torch.equal(pair_row, ref_row) and torch.equal(point,
+                                                             ref_point),
+              "sppm_drain: the fill pass differs from its plain form")
+        contrib = torch.rand((n_pairs, 3), device="cuda")
+        Phi = torch.rand((n_pix, 3), device="cuda")
+        Mi = torch.rand(n_pix, device="cuda")
+        got = sppm.drain_sum(Phi, Mi, contrib, counts, ends)
+        ref = sppm.drain_sum_plain(Phi, Mi, contrib, counts, ends)
+        check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+              "sppm_drain: the sum differs from its plain form")
+        # the bytes each must move: the entries in the points' cells and
+        # their rows' p and path length, once each
+        n = (end - start).clamp(min=0)
+        cover = torch.zeros(e_idx.shape[0] + 1, dtype=torch.int64,
+                            device="cuda")
+        cover.index_add_(0, start, torch.ones_like(start))
+        cover.index_add_(0, end, -torch.ones_like(end))
+        live = torch.cumsum(cover, 0)[:-1] > 0
+        n_entries = int(live.sum())
+        n_rows = int(torch.unique(e_idx[live]).shape[0])
+        match_in = n_pix * 36 + n_entries * 4 + n_rows * 16
+        byte_counts = {"count": match_in + n_pix * 4,
+                       "fill": match_in + n_pix * 12 + n_pairs * 16,
+                       "sum": n_pix * 28 + n_pairs * 12 + n_pix * 16}
+        arrays = [a.contiguous() for a in test]
+        ptrs = [a.data_ptr() for a in arrays]
+        out_c = torch.empty_like(counts)
+        pairs = torch.empty((2, n_pairs), dtype=torch.int64, device="cuda")
+        phi_o, mi_o = torch.empty_like(Phi), torch.empty_like(Mi)
+        entries = {
+            "count": (lambda: lib.goblin_sppm_drain_count(
+                n_pix, *ptrs, out_c.data_ptr(), stream),
+                lambda: sppm.drain_match_plain(*test)),
+            "fill": (lambda: lib.goblin_sppm_drain_fill(
+                n_pix, *ptrs, counts.data_ptr(), ends.data_ptr(),
+                pairs[0].data_ptr(), pairs[1].data_ptr(), stream),
+                lambda: sppm.drain_match_plain(*test, fill=fill)),
+            "sum": (lambda: lib.goblin_sppm_drain_sum(
+                n_pix, counts.data_ptr(), ends.data_ptr(),
+                contrib.data_ptr(), Phi.data_ptr(), Mi.data_ptr(),
+                phi_o.data_ptr(), mi_o.data_ptr(), stream),
+                lambda: sppm.drain_sum_plain(Phi, Mi, contrib, counts,
+                                             ends))}
+        for name, (launch, plain) in entries.items():
+            ms = time_ms(launch, DRAIN_REPS)
+            plain_ms = time_ms(plain, KERNEL_REPS)
+            bound_ms = byte_counts[name] / PEAK_BYTES_S * 1e3
+            row["by_kernel"][name] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": "bytes", "bytes": byte_counts[name],
+                "roofline_share": bound_ms / ms}
+            print(f"  {name}: kernel {ms * 1e3:.2f} us, plain form "
+                  f"{plain_ms * 1e3:.1f} us, bound {bound_ms * 1e3:.3f} us "
+                  f"({byte_counts[name]:,} B)", flush=True)
+        check(torch.equal(out_c, counts) and torch.equal(pairs[0], pair_row)
+              and torch.equal(phi_o, got[0]) and torch.equal(mi_o, got[1]),
+              "sppm_drain: the entries' timed launches differ")
+        # the whole drain, both forms, onto the same sums
+        drains = {}
+        for form in (sppm.drain_pairs, sppm.drain_loop):
+            def call():
+                return form(scene, meta, max_len, n_pix, vp, radius, rows,
+                            e_hash, e_idx, bbox_min, inv_len, Phi, Mi)
+            out = call()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(DRAIN_WALL_REPS):
+                call()
+            torch.cuda.synchronize()
+            drains[form.__name__] = (out, (time.perf_counter() - t)
+                                     / DRAIN_WALL_REPS * 1e3)
+        (a, pair_ms), (b, loop_ms) = drains["drain_pairs"], drains["drain_loop"]
+        check(torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]),
+              "sppm_drain: the pair form differs from the loop")
+    turns = int((end - start).max())
+    row.update(points=n_pix, candidates=int(n.sum()), pairs=n_pairs,
+               turns=turns, entries_in_cells=n_entries, rows_read=n_rows,
+               drain_wall_ms={"pairs": pair_ms, "loop": loop_ms})
+    print(f"  iteration {DRAIN_IT}, first chunk: {n_pix} points, "
+          f"{int(n.sum())} candidates, {n_pairs} pairs, {turns} turns; the "
+          f"whole drain {pair_ms:.2f} ms in pair form, {loop_ms:.2f} ms as "
+          "the loop (wall, synchronized), bit-equal", flush=True)
+    kernel_drains, drains_run = sppm_launches
+    check(kernel_drains == drains_run > 0,
+          f"sppm_drain: phase 8 ran {kernel_drains} of {drains_run} drains "
+          "through the kernels")
+    row["launches_by_path"] = {"bunny sppm (phase 8), count passes":
+                               kernel_drains}
+    row["launches"] = telemetry.counters.get("sppm.drain_launches", 0)
+    return row
+
+
 def run():
     import torch
 
     check(torch.cuda.is_available(), "CUDA is not available")
+    from goblin_tpu_torch import telemetry
     from goblin_tpu_torch.ops import trace as tt
     from goblin_tpu_torch.scene.loader import load_scene
 
@@ -2639,7 +2806,13 @@ def run():
 
     print("[8] SPPM, bunny.json as shipped, through render_context:",
           flush=True)
+    drains0 = [telemetry.counters.get(k, 0)
+               for k in ("sppm.drain_launches", "sppm.drain_reads")]
     sppm_counts = sppm_main_path()
+    sppm_drains = tuple(telemetry.counters.get(k, 0) - c for k, c in zip(
+        ("sppm.drain_launches", "sppm.drain_reads"), drains0))
+    print(f"  drains through the kernels: {sppm_drains[0]} of "
+          f"{sppm_drains[1]}", flush=True)
 
     print("[9] SPPM card vs CPU reference render (width 1):", flush=True)
     reference_check(SPPM_CHECK, BUNNY, wide=1)
@@ -2741,6 +2914,10 @@ def run():
 
     print("[27] the sample hash's kernel vs its int64 form:", flush=True)
     hash_row = hash_kernel_path(pt_hash, start_hash)
+
+    print("[28] SPPM's drain kernels vs their plain forms, the pair form vs "
+          "the loop:", flush=True)
+    drain_row = drain_kernel_path(sppm_drains)
 
     print(f"  clocks.sm, power.draw, temperature: "
           f"{nvidia_smi('clocks.sm,power.draw,temperature.gpu')}")
@@ -2870,9 +3047,16 @@ def run():
     for r in (row, k2_row, stats_row, w4_row, hash_row):
         check(r["ptxas"] and "registers" in r["ptxas"],
               f"{r['name']}: no ptxas numbers in the build's output")
+    drain_row["ptxas"] = {
+        ("fill" if "ILb1E" in name else "count") if "match" in name
+        else "sum": numbers
+        for name, numbers in ptxas_by_entry(builds["sppm_drain"][1]).items()}
+    check(all("registers" in drain_row["ptxas"].get(k, {})
+              for k in ("count", "fill", "sum")),
+          "sppm_drain: no ptxas numbers in the build's output")
     print(smi)
     print(json.dumps({"kernels": [row, k2_row, stats_row, w4_row,
-                                  hash_row]}))
+                                  hash_row, drain_row]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -24,9 +24,11 @@ iteration index with a per-pixel Cranley-Patterson rotation, bit-equal to
 goblin_tpu's. Each bounce traces the whole frame at once. The light walk
 takes the iteration's photons at once too (walk_lanes: as many whole
 chunks as a share of the card's free memory holds); the grid and the drain
-then run chunk by chunk over the walk's rows. The drain is a loop on the
-host over the fullest cell's entries, whose count it reads from the device
-once a drain.
+then run chunk by chunk over the walk's rows. On the CPU the drain is a
+loop on the host over the fullest cell's entries, whose count it reads once
+a drain; on the card it is drain_pairs, the same sums from the (visible
+point, entry) pairs that pass, matched and summed by the kernels of
+csrc/sppm_drain.cu around one BSDF evaluation over the pairs.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from ..core import vecmath as vm
 from ..core.rng import _mul32, _u32, hash_uniform
 from ..core.sampling import radical_inverse
 from ..lights import lights as lt
+from ..ops import trace as _trace
 from ..scene import intersect as scn
 from ..shading import bsdf as bx
 from . import direct
@@ -221,13 +224,196 @@ def _grid_entries(rows, valid, bbox_min, inv_len, max_r, n_pix):
     return entry_hash, entry_idx[order]
 
 
-def _drain_turns(start, end, n_entries):
-    """The turns of goblin_tpu's drain loop (while any lane has start + k <
-    end): the fullest cell's entries, read from the device once a drain."""
-    n_turns = min(int((end - start).max()), n_entries)
+def _drain_cells(vp, entry_hash, bbox_min, inv_len, n_pix):
+    """Each visible point's cell in the sorted entries -> (start, end) (R,)
+    int64; an invalid point's run of entries is empty."""
+    with telemetry.span("sppm.grid"):
+        c = torch.floor((vp["p"] - bbox_min) * inv_len).to(torch.int32)
+        h = _hash_cells(c[:, 0], c[:, 1], c[:, 2], n_pix)
+        start = torch.searchsorted(entry_hash, h)
+        end = torch.searchsorted(entry_hash, h, right=True)
+        return start, torch.where(vp["valid"], end, start)
+
+
+def _drain_turns(start, end, n_entries, ends=None):
+    """-> (turns, pairs): goblin_tpu's drain loop's turns, the fullest
+    cell's entries, and with ends (the pair form's offsets) the pair total,
+    else None. One read from the device a drain."""
+    most = (end - start).max()
+    got = ([int(most), None] if ends is None
+           else torch.stack([most, ends[-1]]).cpu().tolist())
+    n_turns = min(got[0], n_entries)
     telemetry.count("sppm.drain_reads")
     telemetry.count("sppm.drain_turns", n_turns)
-    return n_turns
+    return n_turns, got[1]
+
+
+def _checked(x, dtype, shape, what):
+    """x as the drain's kernels take it: contiguous, of dtype and shape."""
+    if x.dtype != dtype or tuple(x.shape) != shape:
+        raise ValueError(f"sppm_drain: {what} is {x.dtype} "
+                         f"{tuple(x.shape)}, the kernel takes {dtype} {shape}")
+    return x.contiguous()
+
+
+def _drain_launch(entry, n, *arrays):
+    """goblin_sppm_drain_<entry> over n visible points on the current
+    stream; the arrays all on the current device."""
+    dev = torch.cuda.current_device()
+    if any(a.device != torch.device("cuda", dev) for a in arrays):
+        raise ValueError(f"sppm_drain: {entry}'s arrays are not all on "
+                         f"cuda:{dev}")
+    err = getattr(_trace._kernel_lib("sppm_drain"),
+                  f"goblin_sppm_drain_{entry}")(
+        n, *(a.data_ptr() for a in arrays),
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"sppm_drain: {entry} launch failed with CUDA "
+                           f"error {err}")
+
+
+def drain_match_plain(start, end, entry_idx, rows, p, r2, budget, fill=None):
+    """drain_match in PyTorch: every candidate (point, entry) in point and
+    turn order, tested at once."""
+    n = end - start
+    R = n.shape[0]
+    point = torch.repeat_interleave(torch.arange(R, device=n.device), n)
+    k = (torch.arange(point.shape[0], device=n.device)
+         - (torch.cumsum(n, 0) - n)[point])
+    row_i = entry_idx[start[point] + k].long()
+    row = rows[row_i]
+    ok = ((vm.squared_length(row[:, 0:3] - p[point]) <= r2[point])
+          & (row[:, 9] <= budget[point]))
+    if fill is None:
+        return torch.bincount(point[ok], minlength=R).to(torch.int32)
+    return row_i[ok], point[ok]
+
+
+def drain_match(start, end, entry_idx, rows, p, r2, budget, fill=None):
+    """The drain loop's test of each visible point against its cell's
+    entries start .. end (R,) int64 of entry_idx (int32 rows of rows (N,
+    10)): the row's p within r2 of p (R, 3), its path length within budget
+    (R,). fill None, the count pass: -> counts (R,) int32 of the entries
+    that pass. fill (counts, ends, n_pairs), with ends the counts' inclusive
+    cumsum (int64) and n_pairs its last, the fill pass: -> (pair_row,
+    pair_point) (n_pairs,) int64, the passing entries' rows and points in
+    point order and within a point in turn order. One launch of
+    csrc/sppm_drain.cu on CUDA tensors, drain_match_plain on CPU ones."""
+    if not start.is_cuda:
+        return drain_match_plain(start, end, entry_idx, rows, p, r2, budget,
+                                 fill)
+    if start.device.index != torch.cuda.current_device():
+        with torch.cuda.device(start.device):
+            return drain_match(start, end, entry_idx, rows, p, r2, budget,
+                               fill)
+    R = start.shape[0]
+    test = (_checked(start, torch.int64, (R,), "start"),
+            _checked(end, torch.int64, (R,), "end"),
+            _checked(entry_idx, torch.int32, (entry_idx.shape[0],),
+                     "entry_idx"),
+            _checked(rows, torch.float32, (rows.shape[0], 10), "rows"),
+            _checked(p, torch.float32, (R, 3), "p"),
+            _checked(r2, torch.float32, (R,), "r2"),
+            _checked(budget, torch.float32, (R,), "budget"))
+    if fill is None:
+        counts = torch.empty(R, dtype=torch.int32, device=start.device)
+        _drain_launch("count", R, *test, counts)
+        telemetry.count("sppm.drain_launches")
+        return counts
+    counts, ends, n_pairs = fill
+    pairs = torch.empty((2, n_pairs), dtype=torch.int64, device=start.device)
+    _drain_launch("fill", R, *test,
+                  _checked(counts, torch.int32, (R,), "counts"),
+                  _checked(ends, torch.int64, (R,), "ends"), pairs[0],
+                  pairs[1])
+    return pairs[0], pairs[1]
+
+
+def drain_sum_plain(Phi, Mi, contrib, counts, ends):
+    """drain_sum in PyTorch: turn k adds each point's k-th pair (0.0 where
+    it has fewer), which keeps the order of each point's sums."""
+    first = ends - counts
+    for k in range(int(counts.max()) if counts.numel() else 0):
+        has = k < counts
+        j = torch.clamp(first + k, max=contrib.shape[0] - 1)
+        Phi = Phi + torch.where(has[:, None], contrib[j], 0.0)
+        Mi = Mi + has.to(torch.float32)
+    return Phi, Mi
+
+
+def drain_sum(Phi, Mi, contrib, counts, ends):
+    """Phi (R, 3) and Mi (R,) plus each visible point's pairs, added one at
+    a time in pair order (the drain loop's): contrib (P, 3) into Phi, 1 a
+    pair into Mi; counts and ends as drain_match's fill pass took them ->
+    (Phi, Mi), new tensors. One launch of csrc/sppm_drain.cu on CUDA
+    tensors, drain_sum_plain on CPU ones."""
+    if not Phi.is_cuda:
+        return drain_sum_plain(Phi, Mi, contrib, counts, ends)
+    if Phi.device.index != torch.cuda.current_device():
+        with torch.cuda.device(Phi.device):
+            return drain_sum(Phi, Mi, contrib, counts, ends)
+    R = Phi.shape[0]
+    phi = torch.empty((R, 3), dtype=torch.float32, device=Phi.device)
+    mi = torch.empty(R, dtype=torch.float32, device=Phi.device)
+    _drain_launch("sum", R, _checked(counts, torch.int32, (R,), "counts"),
+                  _checked(ends, torch.int64, (R,), "ends"),
+                  _checked(contrib, torch.float32, (contrib.shape[0], 3),
+                           "contrib"),
+                  _checked(Phi, torch.float32, (R, 3), "Phi"),
+                  _checked(Mi, torch.float32, (R,), "Mi"), phi, mi)
+    return phi, mi
+
+
+def drain_loop(scene, meta, max_len, n_pix, vp, radius, rows, entry_hash,
+               entry_idx, bbox_min, inv_len, Phi, Mi):
+    """The drain as goblin_tpu's loop, the CPU's: turn k tests every visible
+    point's k-th entry of its cell and adds what passes, for as many turns
+    as the fullest cell has entries. The plain version of the whole drain,
+    and drain_pairs' reference."""
+    p = vp["p"]
+    E = entry_hash.shape[0]
+    start, end = _drain_cells(vp, entry_hash, bbox_min, inv_len, n_pix)
+    # per visible point, loop invariant
+    mat_v = gather_material(scene, meta, {"mat": vp["mat"], "uv": vp["uv"]})
+    ns, wo = vp["ns"], vp["wo"]
+    r2 = radius * radius
+    budget = float(max_len) - vp["len"].to(torch.float32)
+    for k in range(_drain_turns(start, end, E)[0]):
+        row = rows[entry_idx[torch.clamp(start + k, max=E - 1)].long()]
+        dp, wi, wgt, plen = row[:, 0:3], row[:, 3:6], row[:, 6:9], row[:, 9]
+        ok = ((start + k < end) & (vm.squared_length(dp - p) <= r2)
+              & (plen <= budget))
+        fs = bx.bsdf_eval(mat_v, ns, wo, wi, bx.BSDF_ALL)
+        Phi = Phi + torch.where(ok[:, None], fs * wgt, 0.0)
+        Mi = Mi + ok.to(torch.float32)
+    return Phi, Mi
+
+
+def drain_pairs(scene, meta, max_len, n_pix, vp, radius, rows, entry_hash,
+                entry_idx, bbox_min, inv_len, Phi, Mi):
+    """The drain in pair form, the card's, with drain_loop's arguments and
+    result bit for bit: drain_match finds the (visible point, entry) pairs
+    that pass the drain loop's tests, in two passes around the drain's one
+    read (_drain_turns: the fullest cell's count and the pair total
+    together); the BSDF runs once over the pairs; drain_sum adds them up in
+    the loop's order."""
+    start, end = _drain_cells(vp, entry_hash, bbox_min, inv_len, n_pix)
+    r2 = radius * radius
+    budget = float(max_len) - vp["len"].to(torch.float32)
+    test = (start, end, entry_idx, rows, vp["p"], r2, budget)
+    counts = drain_match(*test)
+    ends = torch.cumsum(counts, 0, dtype=torch.int64)
+    _, n_pairs = _drain_turns(start, end, entry_hash.shape[0], ends)
+    telemetry.count("sppm.drain_pairs", n_pairs)
+    if n_pairs == 0:
+        return Phi, Mi
+    pair_row, point = drain_match(*test, fill=(counts, ends, n_pairs))
+    row = rows[pair_row]
+    mat = gather_material(scene, meta, {"mat": vp["mat"][point],
+                                        "uv": vp["uv"][point]})
+    fs = bx.bsdf_eval(mat, vp["ns"][point], vp["wo"][point], row[:, 3:6],
+                      bx.BSDF_ALL)
+    return drain_sum(Phi, Mi, fs * row[:, 6:9], counts, ends)
 
 
 def walk_lanes(n_pix, cs, max_len, free_bytes):
@@ -291,7 +477,8 @@ def make_photon_passes(scene, meta, seed, max_len, n_pix):
         -> (rows (N, 10) [p, wi, wgt, path_len], entry_hash (8N,) sorted,
             entry_idx (8N,)): a chunk's walk (make_photon_walk) and grid
       vp_drain(vp, radius, rows, entry_hash, entry_idx, bbox_min, inv_len,
-               Phi, Mi) -> (Phi, Mi)
+               Phi, Mi) -> (Phi, Mi): drain_loop on CPU tensors,
+        drain_pairs on CUDA ones, bit for bit alike
     """
     walk = make_photon_walk(scene, meta, seed, max_len)
 
@@ -305,28 +492,9 @@ def make_photon_passes(scene, meta, seed, max_len, n_pix):
     @telemetry.spanned("sppm.drain")
     def vp_drain(vp, radius, rows, entry_hash, entry_idx, bbox_min, inv_len,
                  Phi, Mi):
-        p = vp["p"]
-        E = entry_hash.shape[0]
-        with telemetry.span("sppm.grid"):
-            c = torch.floor((p - bbox_min) * inv_len).to(torch.int32)
-            h = _hash_cells(c[:, 0], c[:, 1], c[:, 2], n_pix)
-            start = torch.searchsorted(entry_hash, h)
-            end = torch.searchsorted(entry_hash, h, right=True)
-            end = torch.where(vp["valid"], end, start)
-        # per visible point, loop invariant
-        mat_v = gather_material(scene, meta, {"mat": vp["mat"], "uv": vp["uv"]})
-        ns, wo = vp["ns"], vp["wo"]
-        r2 = radius * radius
-        budget = float(max_len) - vp["len"].to(torch.float32)
-        for k in range(_drain_turns(start, end, E)):
-            row = rows[entry_idx[torch.clamp(start + k, max=E - 1)].long()]
-            dp, wi, wgt, plen = row[:, 0:3], row[:, 3:6], row[:, 6:9], row[:, 9]
-            ok = ((start + k < end) & (vm.squared_length(dp - p) <= r2)
-                  & (plen <= budget))
-            fs = bx.bsdf_eval(mat_v, ns, wo, wi, bx.BSDF_ALL)
-            Phi = Phi + torch.where(ok[:, None], fs * wgt, 0.0)
-            Mi = Mi + ok.to(torch.float32)
-        return Phi, Mi
+        drain = drain_pairs if vp["p"].is_cuda else drain_loop
+        return drain(scene, meta, max_len, n_pix, vp, radius, rows,
+                     entry_hash, entry_idx, bbox_min, inv_len, Phi, Mi)
 
     return deposit_chunk, vp_drain
 

@@ -70,12 +70,14 @@ _TRI_EPS = 1e-7
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # kernel name -> CUDA source; each builds into its own library. Besides the
-# traversals, the sample hash (core/rng.py::hash_uniform) builds here.
+# traversals, the sample hash (core/rng.py::hash_uniform) and SPPM's drain
+# (integrators/sppm.py::drain_pairs) build here.
 KERNEL_SOURCES = {
     "trace_bvh8": os.path.join(_PKG, "csrc", "trace_bvh8.cu"),
     "trace_bvh4": os.path.join(_PKG, "csrc", "trace_bvh8.cu"),
     "trace_bvh2": os.path.join(_PKG, "csrc", "trace_bvh2.cu"),
     "rng_hash": os.path.join(_PKG, "csrc", "rng_hash.cu"),
+    "sppm_drain": os.path.join(_PKG, "csrc", "sppm_drain.cu"),
 }
 # what a kernel's build defines besides: the wide source's width
 KERNEL_DEFINES = {"trace_bvh4": ("-DGOBLIN_TRACE_WIDTH=4",)}
@@ -400,12 +402,20 @@ def _kernel_lib(name: str):
         entries = {"goblin_trace_bvh2": head + [i32] + tail,
                    "goblin_trace_bvh2_blocks": [i32, i32, ptr],
                    "goblin_trace_bvh2_config": [ptr]}
-    else:
+    elif name == "rng_hash":
         # n, (kind, array, value) for each of seed, pixel, sample, bounce
         # and dim, out, stream
         coord = [i32, ptr, ctypes.c_uint32]
         entries = {"goblin_rng_hash": [ctypes.c_int64] + coord * 5
                    + [ptr, ptr]}
+    else:
+        # n, then arrays: start, end, entry_idx, rows, p, r2, budget and the
+        # counts [, ends, pair_row, pair_point]; counts, ends, contrib, phi,
+        # mi, phi_out, mi_out; each with the stream last
+        n = [ctypes.c_int64]
+        entries = {"goblin_sppm_drain_count": n + [ptr] * 9,
+                   "goblin_sppm_drain_fill": n + [ptr] * 12,
+                   "goblin_sppm_drain_sum": n + [ptr] * 8}
     for entry, argtypes in entries.items():
         getattr(lib, entry).argtypes = argtypes
         getattr(lib, entry).restype = i32

@@ -18,8 +18,9 @@ of render.pass).
 
 Prints one JSON line: the card's name and power limit, per stage the
 device operations and their summed device milliseconds, the totals, the
-photon walks and drain turns of the profiled iteration, the unprofiled
-iterations' wall seconds and the memory peak of the last of them. With
+photon walks, drain turns, kernel drains and pairs of the profiled
+iteration, the unprofiled iterations' wall seconds and the memory peak of
+the last of them. With
 --state, the state after the N iterations goes to an .npz file, so two
 checkouts' states can be compared bit for bit. Needs a CUDA device.
 """
@@ -127,7 +128,8 @@ def main():
             torch.cuda.synchronize()
         counted = {k: telemetry.counters.get(k, 0) - c0.get(k, 0)
                    for k in ("sppm.photon_walks", "sppm.drain_reads",
-                             "sppm.drain_turns", "sppm.photons")}
+                             "sppm.drain_turns", "sppm.drain_launches",
+                             "sppm.drain_pairs", "sppm.photons")}
     stages = by_stage(prof, set(STAGE) | set(telemetry.STAGES))
     print(json.dumps({
         "card": smi.strip(), "torch": torch.__version__,
